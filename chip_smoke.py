@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (sps_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and exits non-zero) on failure:
+  1. build  - compile the CUDA kernels from sps_torch/csrc with nvcc
+              (into build/torch_ext/) and load them;
+  2. kernels - hold each kernel against its plain PyTorch version on the
+              card, at small shapes and at the main path's full-width
+              shapes, in f32 (TF32 off; rtol/atol 1e-4) and bf16 (max error
+              within 2e-2 of the output's max-abs), and time the kernel, the
+              plain version and F.conv2d (CUDA events, median of 20);
+  3. parity - the port's streaming filter on the card against the same
+              filter on the CPU (the path the CPU tests hold against
+              sps_tpu), f32, small config, full MinkUNet14 width;
+  4. path   - the main path: StreamingFilter at config/config.yaml with
+              CONV_MODE zband, ZBAND_LEVELS 1, INT8 off (full MinkUNet14
+              width, full capacities, bf16, TOPO_EVERY 8), seeded random
+              weights, 10 BLT-scale synthetic scans at 0.2 m steps; checks
+              overflow, scores and launch counts, prints latencies.
+It then prints the card, one JSON line of per-kernel results and, last,
+{"ok": true, "device": {...}}. With --profile it also traces 8 scans of the
+main path with torch.profiler and prints the device busy share, the time
+per profiler range and the top kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# Dense H100 SXM peaks (NVIDIA data sheet): bf16 tensor cores, HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+REPLACES = {
+    "zband_conv": "sps_tpu/ops/pallas_conv.py:217",
+    "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
+}
+SOURCE = "sps_torch/csrc/zband_conv.cu"
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return r.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, runs=20, warmup=3):
+    """Median CUDA-event time of fn() over `runs` launches, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def make_case(k, bs, tcin, tcout, b, dtype, seed, with_res=True):
+    """Seeded z-band operands: halo, band-packed weight and the fused
+    epilogue's scale/bias/occ/res, in `dtype` (scale/bias f32)."""
+    import torch
+
+    from sps_torch.ops import brick as bk
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = bs + k - 1
+    n = bs * tcout
+    hz = torch.rand((b, h, h, h * tcin), generator=g, device=dev)
+    w = torch.randn((k, k, k, tcin, tcout), generator=g, device=dev)
+    wz = bk.pack_zband_kernel(w * (2.0 / (k**3 * tcin)) ** 0.5, bs, k // 2)
+    scale = 0.5 + torch.rand(n, generator=g, device=dev)
+    bias = 0.1 * torch.randn(n, generator=g, device=dev)
+    occ = (torch.rand((b, bs, bs, n), generator=g, device=dev) < 0.5).float()
+    res = torch.randn((b, bs, bs, n), generator=g, device=dev) * occ if with_res else None
+    return dict(
+        hz=hz.to(dtype), wz=wz.to(dtype), scale=scale, bias=bias, occ=occ.to(dtype),
+        res=None if res is None else res.to(dtype), k=k, bs=bs,
+    )
+
+
+def run_kernel(name, c, relu=True):
+    from sps_torch.ops import zband_conv as zc
+
+    if name == "zband_conv":
+        return zc.zband_conv(c["hz"], c["wz"], c["k"], c["bs"])
+    return zc.zband_conv_fused(c["hz"], c["wz"], c["scale"], c["bias"], c["occ"], c["res"],
+                               k=c["k"], bs=c["bs"], relu=relu)
+
+
+def run_plain(name, c, relu=True):
+    """The plain version on f32 copies of the same operands."""
+    from sps_torch.ops import zband_conv as zc
+
+    f = {key: (v.float() if hasattr(v, "float") else v) for key, v in c.items()}
+    if name == "zband_conv":
+        return zc.zband_conv_ref(f["hz"], f["wz"], f["k"], f["bs"])
+    return zc.zband_conv_fused_ref(f["hz"], f["wz"], f["scale"], f["bias"], f["occ"],
+                                   f["res"], k=f["k"], bs=f["bs"], relu=relu)
+
+
+def check(name, c, relu, tag):
+    """Kernel vs plain version; returns the max abs error."""
+    import torch
+
+    got = run_kernel(name, c, relu)
+    want = run_plain(name, c, relu)
+    torch.cuda.synchronize()
+    err = (got.float() - want).abs()
+    max_err = float(err.max())
+    scale = float(want.abs().max())
+    if c["hz"].dtype == torch.float32:
+        ok = bool((err <= 1e-4 + 1e-4 * want.abs()).all())
+        bar = "rtol 1e-4 / atol 1e-4"
+    else:
+        ok = max_err <= 2e-2 * max(scale, 1e-6)
+        bar = "2e-2 x max-abs"
+    log(f"  {name:17s} {tag:44s} max_abs_err {max_err:.3e} (out max-abs {scale:.3e}; {bar})")
+    if not ok:
+        raise AssertionError(f"{name} {tag}: kernel disagrees with its plain version")
+    return max_err
+
+
+def work(c, fused):
+    """(FLOPs, bytes) of one call: the band's zeros included; every input
+    read once, the output written once."""
+    b, h, _, cin = c["hz"].shape
+    k, bs = c["k"], c["bs"]
+    n = c["wz"].shape[-1]
+    m = b * bs * bs
+    flops = 2 * m * k * k * cin * n
+    item = c["hz"].element_size()
+    nbytes = (c["hz"].numel() + c["wz"].numel() + m * n) * item
+    if fused:
+        nbytes += c["occ"].numel() * item + 2 * n * 4
+        if c["res"] is not None:
+            nbytes += c["res"].numel() * item
+    return flops, nbytes
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("phase 2: kernels vs plain versions")
+    small = [  # (k, bs, tcin, tcout, B, with_res, relu): tests/test_pallas_conv.py cases
+        (3, 4, 2, 3, 8, True, True), (3, 8, 2, 2, 8, True, True), (5, 4, 1, 2, 8, True, True),
+        (3, 4, 2, 2, 6, True, True), (3, 4, 2, 2, 4, True, True), (3, 4, 2, 2, 4, False, False),
+    ]
+    errs = {"zband_conv": 0.0, "zband_conv_fused": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (k, bs, tcin, tcout, b, wres, relu) in enumerate(small):
+            c = make_case(k, bs, tcin, tcout, b, dtype, seed=i, with_res=wres)
+            tag = f"small k={k} bs={bs} tcin={tcin} tcout={tcout} B={b} {str(dtype)[6:]}"
+            check("zband_conv", c, relu, tag)
+            check("zband_conv_fused", c, relu, tag + f" res={wres} relu={relu}")
+
+    # The main path's L0 shapes at B = 11264 bricks (config.yaml, batch 1):
+    # the k=5 stem, block8_0.conv1 (no residual) and conv2 (with residual).
+    full = [
+        ("zband_conv", "stem conv0p1s1", 5, 2, 16, False),
+        ("zband_conv_fused", "block8_0.conv1", 3, 32, 16, False),
+        ("zband_conv_fused", "block8_0.conv2", 3, 16, 16, True),
+    ]
+    per_call = []
+    for i, (name, where, k, tcin, tcout, wres) in enumerate(full):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = make_case(k, 8, tcin, tcout, 11264, dtype, seed=100 + i, with_res=wres)
+            tag = f"full {where} hz{tuple(c['hz'].shape)} {str(dtype)[6:]}"
+            e = check(name, c, True, tag)
+            if dtype == torch.bfloat16:
+                errs[name] = max(errs[name], e)
+            del c
+        c = make_case(k, 8, tcin, tcout, 11264, torch.bfloat16, seed=100 + i, with_res=wres)
+        x_nchw = c["hz"].permute(0, 3, 1, 2)
+        w_oihw = c["wz"].permute(3, 2, 0, 1)
+        ms = time_ms(lambda: run_kernel(name, c))
+        plain_ms = time_ms(lambda: run_plain(name, c))
+        library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
+        flops, nbytes = work(c, name == "zband_conv_fused")
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+        per_call.append(dict(name=name, call=where, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             gflop=flops / 1e9, gbytes=nbytes / 1e9))
+        log(f"  time {name:17s} {where:15s} bf16: kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+            f"F.conv2d {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        del c, x_nchw, w_oihw
+        torch.cuda.empty_cache()
+    return errs, per_call
+
+
+def blt_scale_scans(n_scans, ns, traj_step=0.2, extent=50.0):
+    """BLT-scale synthetic world (~1.2M-point map) and n_scans scans taken
+    traj_step metres apart along a loop, padded to ns points."""
+    from sps_torch.data import synthetic
+
+    rng = np.random.default_rng(0)
+    stable = synthetic.make_world(seed=0, extent=extent, n_stable=120,
+                                  ground_points=1_200_000)
+    clutter = synthetic._boxes(rng, 40, 0.8 * extent).astype(np.float32)
+    scans = np.zeros((n_scans, ns, 3), np.float32)
+    labels = np.zeros((n_scans, ns), np.float32)
+    valids = np.zeros((n_scans, ns), bool)
+    radius = 0.5 * extent
+    for i in range(n_scans):
+        ang = (traj_step / radius) * i
+        pose_xy = radius * np.array([np.cos(ang), np.sin(ang)])
+        pts, lab = synthetic.sample_scan(rng, stable, clutter, pose_xy,
+                                         n_rays=360 * 24, max_r=30.0)
+        k = min(len(pts), ns)
+        scans[i, :k], labels[i, :k], valids[i, :k] = pts[:k], lab[:k], True
+    return stable, scans, labels, valids
+
+
+def phase_parity():
+    """The filter on the card vs on the CPU: same small world, weights, scans."""
+    import torch
+
+    from sps_torch import config
+    from sps_torch.data import synthetic
+    from sps_torch.models import spsnet
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 3: streaming filter, card vs CPU (f32, config_small, full width)")
+    cfg = config.load(os.path.join(HERE, "config", "config_small.yaml"))
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, engine="atlas", conv_mode="zband", zband_levels=1, int8=False,
+        bf16=False, topo_every=2))
+    sd = spsnet.init_state_dict(cfg.sps_config(1), seed=1)
+    stable = synthetic.make_world(seed=3, extent=10.0, n_stable=10, ground_points=6000)
+    rng = np.random.default_rng(3)
+    clutter = synthetic._boxes(rng, 3, 8.0).astype(np.float32)
+    f_gpu = StreamingFilter(cfg, sd, stable)
+    f_cpu = StreamingFilter(cfg, sd, stable, device="cpu")
+    ns = cfg.tpu.scan_points
+    for i in range(2):  # rebuild, then reuse
+        pts, lab = synthetic.sample_scan(rng, stable, clutter, np.array([0.2 * i, 0.0]),
+                                         n_rays=400)
+        x = np.zeros((ns, 3), np.float32)
+        v = np.zeros(ns, bool)
+        lb = np.zeros(ns, np.float32)
+        k = min(len(pts), ns)
+        x[:k], v[:k], lb[:k] = pts[:k], True, lab[:k]
+        pose = np.eye(4, dtype=np.float32)
+        s_g, _, st_g = f_gpu(x, v, lb, pose)
+        s_c, _, st_c = f_cpu(x, v, lb, pose)
+        s_g = s_g.cpu()
+        err = float((s_g - s_c).abs().max())
+        log(f"  scan {i}: max |score_card - score_cpu| {err:.3e}, n_scan_voxels "
+            f"{int(st_g['n_scan_voxels'])}/{int(st_c['n_scan_voxels'])}, overflow "
+            f"{bool(st_g['overflow'])}")
+        torch.testing.assert_close(s_g, s_c, rtol=1e-3, atol=1e-4)
+        for key in ("n_scan_voxels", "n_submap_voxels", "topo_miss_points", "overflow"):
+            if int(st_g[key]) != int(st_c[key]):
+                raise AssertionError(f"parity scan {i}: {key} differs")
+
+
+def phase_path(card):
+    import torch
+
+    from sps_torch import config
+    from sps_torch.models import spsnet
+    from sps_torch.ops import zband_conv as zc
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 4: main path (config.yaml, zband, int8 off, bf16, full width)")
+    cfg = config.load(os.path.join(HERE, "config", "config.yaml"))
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, conv_mode="zband", zband_levels=1, int8=False))
+    scfg = cfg.sps_config(1)
+    log(f"  caps {scfg.caps.bricks} extent {scfg.atlas_extent} planes {scfg.unet.planes} "
+        f"dtype {scfg.unet.dtype} topo_every {cfg.tpu.topo_every}")
+    n_scans = 10
+    t0 = time.time()
+    stable, scans, labels, valids = blt_scale_scans(n_scans, cfg.tpu.scan_points)
+    log(f"  data: map {len(stable)} points, scan valid points "
+        f"{[int(v.sum()) for v in valids]} ({time.time() - t0:.1f} s)")
+    sd = spsnet.init_state_dict(scfg, seed=0)
+    filt = StreamingFilter(cfg, sd, stable)
+    torch.cuda.synchronize()
+    log(f"  map atlas: {int(filt.map_grid.num_bricks)} bricks, extent {filt.map_grid.extent}")
+    pose = np.eye(4, dtype=np.float32)  # scans are already in the map frame
+
+    torch.cuda.reset_peak_memory_stats()
+    for key in zc.LAUNCHES:
+        zc.LAUNCHES[key] = 0
+    lat = []
+    results = []
+    for i in range(n_scans):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores, keep, stats = filt(scans[i], valids[i], labels[i], pose)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        results.append((scores, keep, stats))
+    launches = dict(zc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, (scores, keep, stats) in enumerate(results):
+        s = scores.float().cpu().numpy()
+        v = valids[i]
+        prog = "rebuild" if i % cfg.tpu.topo_every == 0 else "reuse"
+        log(f"  scan {i} ({prog}): {lat[i]:.2f} ms, n_kept {int(stats['n_kept'])}, "
+            f"n_scan_voxels {int(stats['n_scan_voxels'])}, n_submap_voxels "
+            f"{int(stats['n_submap_voxels'])}, topo_miss_points "
+            f"{int(stats['topo_miss_points'])}, dIoU {float(stats['dIoU']):.4f}, "
+            f"overflow {bool(stats['overflow'])}")
+        if bool(stats["overflow"]):
+            raise AssertionError(f"scan {i}: capacity overflow")
+        if s.shape != v.shape or not np.isfinite(s).all():
+            raise AssertionError(f"scan {i}: scores not finite / wrong shape {s.shape}")
+        if s.min() < 0 or s.max() > 1 or (s[~v] != 0).any() or not (s[v] > 0).all():
+            raise AssertionError(f"scan {i}: scores outside (0, 1] on valid points")
+        if int(stats["n_kept"]) <= 0:
+            raise AssertionError(f"scan {i}: no point kept")
+        if "topo_miss_points" not in stats:
+            raise AssertionError(f"scan {i}: topo_miss_points not reported")
+    p50 = statistics.median(lat)
+    log(f"  per-scan latency ms {[round(x, 2) for x in lat]}; p50 {p50:.2f} ms; "
+        f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    want = {"zband_conv": n_scans, "zband_conv_fused": 2 * n_scans}
+    log(f"  kernel launches on the path: {launches} (expected {want})")
+    for key, n in want.items():
+        if launches[key] != n:
+            raise AssertionError(f"{key} launched {launches[key]} times, expected {n}")
+    return launches, filt, (scans, valids, labels)
+
+
+def _device_us(evt) -> float:
+    for key in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, key):
+            return float(getattr(evt, key))
+    return 0.0
+
+
+def _incl_device_us(evt) -> float:
+    for key in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, key):
+            return float(getattr(evt, key))
+    return 0.0
+
+
+def phase_profile(filt, data, card, n=8):
+    """--profile: torch.profiler over n scans from a fresh rebuild (1
+    rebuild + n-1 reuse at TOPO_EVERY 8): device busy share, time per
+    profiler range (sps.*) and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scans, valids, labels = data
+    pose = np.eye(4, dtype=np.float32)
+    filt.invalidate()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(n):
+            filt(scans[i], valids[i], labels[i], pose)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    ka = prof.key_averages()
+
+    def on_device(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    kernels = [e for e in ka if on_device(e) and not e.key.startswith("sps.")]
+    busy = sum(_device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    log(f"profile: {n} scans, wall {wall_us / 1e3:.2f} ms, kernels {busy / 1e3:.2f} ms "
+        f"(device busy {100 * busy / wall_us:.1f}%), {launches / n:.0f} kernel launches "
+        f"per scan [{card}]")
+    spans = {e.key: _device_us(e) for e in ka if on_device(e) and e.key.startswith("sps.")}
+    for e in sorted((e for e in ka if not on_device(e) and e.key.startswith("sps.")),
+                    key=lambda e: e.key):
+        log(f"  range {e.key:24s} x{e.count:2d}  host {e.cpu_time_total / 1e3:9.3f} ms  "
+            f"kernels {_incl_device_us(e) / 1e3:9.3f} ms  device span "
+            f"{spans.get(e.key, 0.0) / 1e3:9.3f} ms")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
+        log(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d}  {e.key[:100]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from sps_torch.ops import zband_conv as zc
+
+    log("phase 1: build")
+    t0 = time.time()
+    zc.build()
+    log(f"  built/loaded {', '.join(os.path.relpath(p, HERE) for p in zc.SOURCES)} "
+        f"in {time.time() - t0:.1f} s")
+    for line in zc.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    card = card_line()
+    log(f"  card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    errs, per_call = phase_kernels()
+    phase_parity()
+    launches, filt, data = phase_path(card)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(filt, data, card)
+
+    kernels = []
+    for name in ("zband_conv", "zband_conv_fused"):
+        calls = [c for c in per_call if c["name"] == name]
+        total = {key: sum(c[key] for c in calls)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": calls[0]["bound_by"],
+            "library_ms": total["library_ms"],
+            "calls": [{k: c[k] for k in ("call", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "gflop", "gbytes")}
+                      for c in calls],
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

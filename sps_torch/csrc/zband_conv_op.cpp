@@ -1,0 +1,94 @@
+// PyTorch binding of the z-band kernels in zband_conv.cu: registers
+// torch.ops.sps_torch.zband_conv and torch.ops.sps_torch.zband_conv_fused
+// for CUDA tensors. The kernel file has a plain C entry point and no
+// PyTorch headers; this file includes only the operator registry and one
+// ATen operator, so both build in seconds (sps_torch/ops/zband_conv.py).
+//
+// The caller passes the CUDA stream to launch on (the current stream, as
+// an integer handle) and makes the tensors' device current.
+
+#include <ATen/core/Tensor.h>
+#include <ATen/ops/empty.h>
+#include <torch/library.h>
+
+extern "C" int sps_zband_conv(int dtype, int fused, const void* hz, const void* wz,
+                              const float* scale, const float* bias, const void* occ,
+                              const void* res, void* out, long long batch, int k, int bs,
+                              int C, int N, int relu, void* stream);
+
+namespace {
+
+void check_operand(const at::Tensor& t, const at::Tensor& hz, const char* name) {
+  TORCH_CHECK(t.device() == hz.device(), name, " is not on hz's device");
+  TORCH_CHECK(t.is_contiguous(), name, " is not contiguous");
+}
+
+at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* scale,
+                  const at::Tensor* bias, const at::Tensor* occ, const at::Tensor* res,
+                  int64_t k, int64_t bs, bool relu, int64_t stream) {
+  TORCH_CHECK(hz.is_cuda(), "zband kernels take CUDA tensors");
+  const bool bf16 = hz.scalar_type() == at::kBFloat16;
+  TORCH_CHECK(bf16 || hz.scalar_type() == at::kFloat, "hz must be float32 or bfloat16");
+  const int64_t h = bs + k - 1;
+  TORCH_CHECK(hz.dim() == 4 && hz.size(1) == h && hz.size(2) == h, "hz must be (B, h, h, C)");
+  const int64_t b = hz.size(0), c = hz.size(3);
+  TORCH_CHECK(wz.dim() == 4 && wz.size(0) == k && wz.size(1) == k && wz.size(2) == c,
+              "wz must be (k, k, C, N)");
+  const int64_t n = wz.size(3);
+  TORCH_CHECK(n % bs == 0, "wz's N must be a multiple of bs");
+  check_operand(hz, hz, "hz");
+  check_operand(wz, hz, "wz");
+  TORCH_CHECK(wz.scalar_type() == hz.scalar_type(), "wz's dtype differs from hz's");
+  const bool fused = scale != nullptr;
+  if (fused) {
+    for (const at::Tensor* t : {scale, bias}) {
+      check_operand(*t, hz, "scale/bias");
+      TORCH_CHECK(t->scalar_type() == at::kFloat && t->dim() == 1 && t->size(0) == n,
+                  "scale/bias must be f32 (N,)");
+    }
+    for (const at::Tensor* t : {occ, res}) {
+      if (t == nullptr) continue;
+      check_operand(*t, hz, "occ/res");
+      TORCH_CHECK(t->scalar_type() == hz.scalar_type(), "occ/res dtype differs from hz's");
+      TORCH_CHECK(t->dim() == 4 && t->size(0) == b && t->size(1) == bs && t->size(2) == bs &&
+                      t->size(3) == n,
+                  "occ/res must be (B, bs, bs, N)");
+    }
+  }
+  at::Tensor out = at::empty({b, bs, bs, n}, hz.options());
+  const int err = sps_zband_conv(
+      bf16 ? 1 : 0, fused ? 1 : 0, hz.data_ptr(), wz.data_ptr(),
+      fused ? scale->data_ptr<float>() : nullptr, fused ? bias->data_ptr<float>() : nullptr,
+      fused ? occ->data_ptr() : nullptr, res != nullptr ? res->data_ptr() : nullptr,
+      out.data_ptr(), b, static_cast<int>(k), static_cast<int>(bs), static_cast<int>(c),
+      static_cast<int>(n), relu ? 1 : 0, reinterpret_cast<void*>(stream));
+  TORCH_CHECK(err == 0, "zband kernel launch failed: cudaError ", err);
+  return out;
+}
+
+at::Tensor zband_conv(const at::Tensor& hz, const at::Tensor& wz, int64_t k, int64_t bs,
+                      int64_t stream) {
+  return launch(hz, wz, nullptr, nullptr, nullptr, nullptr, k, bs, false, stream);
+}
+
+at::Tensor zband_conv_fused(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor& scale,
+                            const at::Tensor& bias, const at::Tensor& occ,
+                            const std::optional<at::Tensor>& res, int64_t k, int64_t bs,
+                            bool relu, int64_t stream) {
+  return launch(hz, wz, &scale, &bias, &occ, res.has_value() ? &*res : nullptr, k, bs, relu,
+                stream);
+}
+
+}  // namespace
+
+TORCH_LIBRARY(sps_torch, m) {
+  m.def("zband_conv(Tensor hz, Tensor wz, int k, int bs, int stream) -> Tensor");
+  m.def(
+      "zband_conv_fused(Tensor hz, Tensor wz, Tensor scale, Tensor bias, Tensor occ, "
+      "Tensor? res, int k, int bs, bool relu, int stream) -> Tensor");
+}
+
+TORCH_LIBRARY_IMPL(sps_torch, CUDA, m) {
+  m.impl("zband_conv", &zband_conv);
+  m.impl("zband_conv_fused", &zband_conv_fused);
+}

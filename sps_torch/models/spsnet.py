@@ -1,0 +1,104 @@
+"""SPS stability-scoring model (counterpart of sps_tpu/models/spsnet.py).
+
+Points -> per-point stability in [0, 1]: voxelize into atlas bricks,
+build the topology pyramid, MinkUNet(in=1, out=1, D=4) on the constant
+0.5 input feature, devoxelize, sigmoid. The model runs in the levels/p2v
+entry mode: the streaming engine (and build_pyramid, for batches) builds
+the pyramid outside the module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from sps_torch.models.minkunet import MaskedBatchNorm, MinkUNet, MinkUNetConfig
+from sps_torch.ops import atlas as atl
+from sps_torch.ops import voxelize as vox
+from sps_torch.structs import Capacities, PointBatch
+
+NUM_LEVELS = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class SPSConfig:
+    voxel_size: float = 0.1
+    threshold: float = 0.84
+    caps: Capacities = Capacities()
+    unet: MinkUNetConfig = MinkUNetConfig(in_channels=1, out_channels=1, num_time=2)
+    # The port runs the "atlas" engine (dense-AABB brick topology).
+    engine: str = "atlas"
+    brick_side: int = 8
+    # Static atlas window (NB, NX, NY, NZ) in bricks.
+    atlas_extent: tuple = (2, 256, 256, 96)
+    # Levels >= row_from run as voxel rows aliased to brick level li-3
+    # (needs brick_side 8 and row_from >= 3).
+    row_from: int | None = 3
+    dist_feature: bool = False
+    dist_cap: float = 1.0
+
+
+def build_levels_from_grid(grid: atl.AtlasGrid, cfg: SPSConfig):
+    """Topology pyramid from a stride-1 atlas grid: brick levels
+    [0, row_from) plus aliased row levels. Returns (levels, overflow)."""
+    if not (cfg.engine == "atlas" and cfg.row_from is not None and cfg.row_from >= 3
+            and cfg.brick_side == 8):
+        raise NotImplementedError(
+            "the port builds the atlas pyramid with aliased row levels "
+            "(engine atlas, brick_side 8, row_from >= 3) only"
+        )
+    levels = atl.build_levels(grid, num_levels=cfg.row_from, capacities=cfg.caps.bricks)
+    levels = atl.alias_row_levels(levels, NUM_LEVELS)
+    overflow = torch.stack([lv.grid.overflow for lv in levels])
+    return levels, overflow
+
+
+def build_pyramid(pb: PointBatch, cfg: SPSConfig):
+    """Voxelize a point batch and build the pyramid: (levels, point2slot, overflow)."""
+    coords = vox.quantize(pb.xyz, cfg.voxel_size)
+    grid, p2s = atl.voxelize_bricks(
+        coords, pb.batch, pb.t, pb.valid, num_time=cfg.unet.num_time,
+        brick_capacity=cfg.caps.bricks[0], brick_side=cfg.brick_side,
+        extent=cfg.atlas_extent,
+    )
+    levels, overflow = build_levels_from_grid(grid, cfg)
+    return levels, p2s, overflow
+
+
+class SPSModel(nn.Module):
+    def __init__(self, cfg: SPSConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.dist_feature:
+            raise NotImplementedError("the distance-to-map feature is not ported yet")
+        self.cfg = cfg
+        self.MinkUNet = MinkUNet(cfg.unet, generator)
+
+    def forward(self, *, levels, p2v, t_idx, valid):
+        """Returns (scores, aux): (N,) sigmoid stability scores (0 for padded
+        points) and a dict with the per-level overflow flags."""
+        cfg = self.cfg
+        overflow = torch.stack([lv.grid.overflow for lv in levels])
+        occ0 = levels[0].grid.occ
+        # Constant 0.5 input feature on occupied slots.
+        feats0 = (0.5 * occ0.repeat_interleave(cfg.unet.in_channels, dim=-1)).to(cfg.unet.dtype)
+        out = self.MinkUNet(feats0, levels)
+        per_point = vox.devoxelize_flat(
+            out, p2v, t_idx, num_time=cfg.unet.num_time, channels=cfg.unet.out_channels
+        )[:, 0].float()
+        scores = torch.sigmoid(per_point) * valid.to(per_point.dtype)
+        return scores, {"overflow": overflow, "point2voxel": p2v}
+
+
+def init_state_dict(cfg: SPSConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded random weights: He-normal kernels and, so that BN is not the
+    identity, random running statistics (mean 0.3*N(0,1), var 0.5+U(0,1))."""
+    g = torch.Generator().manual_seed(seed)
+    model = SPSModel(cfg, generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.mean.copy_(0.3 * torch.randn(m.features, generator=g))
+                m.var.copy_(0.5 + torch.rand(m.features, generator=g))
+    return model.state_dict()

@@ -1,0 +1,276 @@
+"""Dense-brick sparse engine (counterpart of sps_tpu/ops/brick.py).
+
+Voxels live in bs^3 bricks; a stride-1 sparse conv becomes a dense conv
+over halo-extended bricks assembled from the 26 neighbour bricks given by
+`nbr27`. Empty voxels inside occupied bricks are phantom slots, masked to
+exact zeros by the brick occupancy (B, bs, bs, bs, T). The z-band layout
+folds z into channels, (B, bs, bs, bs*TC), and runs the stride-1 conv as
+one 2-D conv (ops/zband_conv.py, a CUDA kernel on the card).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sps_torch.ops import zband_conv as zc
+from sps_torch.ops.sparse_conv import mask_slots, pack_time_toeplitz, take_rows
+
+# x-slowest (0,1)^3 enumeration.
+OCT_OFFSETS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
+OFFS27 = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)]
+
+
+class BrickLevel(NamedTuple):
+    grid: object  # atlas.AtlasGrid
+    nbr27: torch.Tensor  # (27, B) neighbour brick rows (OFFS27 order)
+    parent: torch.Tensor | None  # (B,) coarse brick row
+    oct: torch.Tensor | None  # (B, 3) octant (bcoords & 1) per axis
+    child: torch.Tensor | None  # (8, B) fine brick rows (OCT_OFFSETS order)
+    # Coarse ROW ids of this level's (bs/2)^3 parent-voxel block, set on the
+    # fine level just below the brick->row boundary (atlas.alias_row_levels).
+    parent_rows: torch.Tensor | None = None
+
+
+def _assemble_octants(blocks: torch.Tensor) -> torch.Tensor:
+    """(8, B, s, s, s, C) octant blocks in OCT_OFFSETS order -> (B, 2s, 2s, 2s, C)."""
+    _, b, s, _, _, c = blocks.shape
+    x = blocks.reshape(2, 2, 2, b, s, s, s, c).permute(3, 0, 4, 1, 5, 2, 6, 7)
+    return x.reshape(b, 2 * s, 2 * s, 2 * s, c)
+
+
+def gather_children(fine_vals: torch.Tensor, child: torch.Tensor) -> torch.Tensor:
+    """(Bc, 2bs, 2bs, 2bs, C) blocks from (8, Bc) child rows over (Bf, bs, bs, bs, C)
+    fine values (zeros where absent)."""
+    bf = fine_vals.shape[0]
+    flat = fine_vals.reshape(bf, -1)
+    blocks = take_rows(flat, child).reshape(child.shape + fine_vals.shape[1:])
+    return _assemble_octants(blocks)
+
+
+def coarse_occ_from_children(fine_occ: torch.Tensor, child: torch.Tensor) -> torch.Tensor:
+    """(Bc, bs, bs, bs, T) coarse occupancy = OR over the 2^3 fine windows."""
+    t = fine_occ.shape[-1]
+    bs = fine_occ.shape[1]
+    big = gather_children(fine_occ, child)
+    bc = big.shape[0]
+    return big.reshape(bc, bs, 2, bs, 2, bs, 2, t).amax(dim=(2, 4, 6))
+
+
+_HALO_MAPS: dict = {}
+
+
+def _halo_map(bs: int, pad: int, device):
+    """Static (3, h*h) tables for a halo of side h = bs + 2*pad, uploaded
+    once per device. Halo column (x, y) takes its z cells from the z-lines
+    of three bricks (dz = -1, 0, +1); for each dz and (x, y) the tables
+    hold the OFFS27 index of that brick and the z-line (lx*bs + ly) in it."""
+    key = (bs, pad, str(device))
+    if key not in _HALO_MAPS:
+        h = bs + 2 * pad
+        d = np.arange(h) - pad
+        nd = np.floor_divide(d, bs)  # -1, 0, 1: which neighbour along the axis
+        loc = d - nd * bs
+        dz, gx, gy = np.meshgrid(np.arange(3), np.arange(h), np.arange(h), indexing="ij")
+        k = ((nd[gx] + 1) * 3 + (nd[gy] + 1)) * 3 + dz
+        line = loc[gx] * bs + loc[gy]
+        _HALO_MAPS[key] = (
+            torch.as_tensor(k.reshape(3, -1), dtype=torch.long, device=device),
+            torch.as_tensor(line.reshape(3, -1), dtype=torch.long, device=device),
+        )
+    return _HALO_MAPS[key]
+
+
+def _halo_assemble(x, nbr27, pad, zaxis_scale):
+    """Halo assembly over (B, bs, bs, Z, ...) features laid out voxel-major
+    (x, y, z, then TC channels). `zaxis_scale` is 1 for (B, bs, bs, bs, TC)
+    and TC for the z-folded (B, bs, bs, bs*TC) layout; the output keeps the
+    input's layout.
+
+    sps_tpu groups the 26 neighbour slabs into 3 gathers to suit the TPU;
+    on the card each slice and copy is a kernel launch, so here every halo
+    column (x, y) is three row gathers: the last `pad` z cells of the
+    dz = -1 brick's z-line, the whole z-line of the dz = 0 brick and the
+    first `pad` z cells of the dz = +1 brick, joined by one concatenation.
+    Absent neighbours read a trailing zero row. The centre comes from
+    nbr27's centre row like any neighbour: the input itself for occupied
+    bricks, zeros beyond num_bricks, as their masked features are."""
+    b, bs = x.shape[0], x.shape[1]
+    assert 1 <= pad <= bs
+    h = bs + 2 * pad
+    bout = nbr27.shape[1]
+    lines = x.reshape(b * bs * bs, -1)  # z-lines: bs * TC values each
+    tc = lines.shape[1] // bs
+    k, line = _halo_map(bs, pad, x.device)
+    nb = nbr27[k.reshape(-1)].reshape(3, h * h, bout)
+    rows = torch.where(nb >= 0, nb.long() * (bs * bs) + line[:, :, None], b * bs * bs)
+    rows = rows.permute(0, 2, 1).reshape(3, -1)  # (dz, B' * h * h)
+    parts = []
+    for dz, src in enumerate((lines[:, (bs - pad) * tc :], lines, lines[:, : pad * tc])):
+        src = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+        parts.append(src[rows[dz]].reshape(bout, h, h, -1))
+    out = torch.cat(parts, dim=-1)
+    return out.reshape((bout, h, h, h * zaxis_scale) + tuple(x.shape[4:]))
+
+
+def halo(feats: torch.Tensor, nbr27: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, bs, bs, bs, C) -> (B, bs+2p, bs+2p, bs+2p, C): 26-neighbour assembly."""
+    return _halo_assemble(feats, nbr27, pad, 1)
+
+
+def halo_z(zfeats: torch.Tensor, nbr27: torch.Tensor, pad: int, tc: int) -> torch.Tensor:
+    """z-folded halo: (B, bs, bs, bs*TC) -> (B, bs+2p, bs+2p, (bs+2p)*TC)."""
+    return _halo_assemble(zfeats, nbr27, pad, tc)
+
+
+def fold_z(feats: torch.Tensor) -> torch.Tensor:
+    """(B, bs, bs, bs, TC) -> (B, bs, bs, bs*TC): z folded into channels
+    (z-major, t, c minor; memory order unchanged)."""
+    b, bs = feats.shape[0], feats.shape[1]
+    return feats.reshape(b, bs, bs, -1)
+
+
+def unfold_z(zfeats: torch.Tensor, tc: int) -> torch.Tensor:
+    """(B, bs, bs, bs*TC) -> (B, bs, bs, bs, TC)."""
+    b, bs = zfeats.shape[0], zfeats.shape[1]
+    return zfeats.reshape(b, bs, bs, bs, tc)
+
+
+def pack_zband_kernel(w_dense: torch.Tensor, bs: int, pad: int) -> torch.Tensor:
+    """(k, k, k, TCin, TCout) -> (k, k, (bs+2p)*TCin, bs*TCout) block-banded
+    2-D kernel: output z-block zo reads halo z-blocks zo..zo+k-1 through the
+    kz taps."""
+    k, _, _, tcin, tcout = w_dense.shape
+    h = bs + 2 * pad
+    wb = w_dense.reshape(k, k, k * tcin, tcout)
+    wz = w_dense.new_zeros((k, k, h * tcin, bs * tcout))
+    for zo in range(bs):
+        wz[:, :, zo * tcin : (zo + k) * tcin, zo * tcout : (zo + 1) * tcout] = wb
+    return wz
+
+
+def mask_bricks(feats: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """Zero phantom (voxel, t) slots: feats (B, s, s, s, T*C) with occ
+    (B, s, s, s, T), or their z-folded forms."""
+    return mask_slots(feats, occ)
+
+
+def brick_conv_zband(zfeats, nbr27, w_dense, occz, *, mask_out: bool = True):
+    """Stride-1 sparse conv in the z-folded layout: the folded halo, then one
+    2-D conv whose channel axes carry z (the zband_conv kernel).
+
+    zfeats (B, bs, bs, bs*TCin); occz (B, bs, bs, bs*T). Returns (B, bs, bs, bs*TCout)."""
+    k = w_dense.shape[0]
+    pad = k // 2
+    bs = zfeats.shape[1]
+    tcin = zfeats.shape[-1] // bs
+    h = halo_z(zfeats, nbr27, pad, tcin)
+    wz = pack_zband_kernel(w_dense, bs, pad)
+    out = zc.zband_conv(h, wz, k, bs)
+    return mask_bricks(out, occz) if mask_out else out
+
+
+def brick_conv_zband_fused(zfeats, nbr27, w_dense, scale_c, bias_c, occ_rep, res=None,
+                           *, num_time: int, relu: bool = True):
+    """Inference-fused zband conv: occ * [relu](conv * scale + bias [+ res]) in
+    one kernel (the zband_conv_fused kernel).
+
+    scale_c/bias_c: per-channel (C,) f32 BN affine from running stats;
+    occ_rep: (B, bs, bs, bs*T*C) channel-repeated folded occupancy."""
+    k = w_dense.shape[0]
+    pad = k // 2
+    bs = zfeats.shape[1]
+    tcin = zfeats.shape[-1] // bs
+    h = halo_z(zfeats, nbr27, pad, tcin)
+    wz = pack_zband_kernel(w_dense, bs, pad)
+    s = scale_c.float().repeat(bs * num_time)
+    b = bias_c.float().repeat(bs * num_time)
+    return zc.zband_conv_fused(h, wz, s, b, occ_rep, res, k=k, bs=bs, relu=relu)
+
+
+def _conv3d_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """VALID 3-D cross-correlation in the JAX layouts: x NDHWC, w DHWIO."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2))
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def brick_conv(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
+    """Stride-1 sparse conv as a dense VALID 3-D conv over the assembled halo
+    (the "halo" mode of sps_tpu's brick_conv).
+
+    w_dense: (k, k, k, T*Cin, T*Cout) in x-slowest offset order."""
+    k = w_dense.shape[0]
+    h = halo(feats, nbr27, k // 2)
+    out = _conv3d_valid(h, w_dense).to(feats.dtype)
+    return mask_bricks(out, occ) if mask_out else out
+
+
+def brick_conv_down(fine_feats, child, w_packed, occ_coarse, *, mask_out: bool = True):
+    """Kernel-2 stride-2 conv: each child's bs^3 block reduces to the
+    (bs/2)^3 output quadrant at its octant.
+
+    w_packed: (8, T*Cin, T*Cout) in OCT_OFFSETS order."""
+    bs = occ_coarse.shape[1]
+    hs = bs // 2
+    bf, tc = fine_feats.shape[0], fine_feats.shape[-1]
+    bc = child.shape[1]
+    blk = take_rows(fine_feats.reshape(bf, -1), child)  # (8, Bc, bs^3 * TC)
+    blk = blk.reshape(8, bc, hs, 2, hs, 2, hs, 2, tc).permute(0, 1, 2, 4, 6, 3, 5, 7, 8)
+    # (8, Bc, hs, hs, hs, 8 * TCin) in (a, b, c)-parity order, one matmul.
+    blk = blk.reshape(8, bc, hs, hs, hs, 8 * tc)
+    q = blk @ w_packed.reshape(8 * tc, w_packed.shape[-1])
+    out = _assemble_octants(q)
+    return mask_bricks(out, occ_coarse) if mask_out else out
+
+
+def _expand_octants(sub: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """fine[2i+a, 2j+b, 2k+c] = sub[i, j, k] @ W[(a, b, c)]."""
+    bf, hs = sub.shape[0], sub.shape[1]
+    tcout = w_packed.shape[-1]
+    y = torch.einsum("bxyzc,pcd->bxyzpd", sub, w_packed)
+    y = y.reshape(bf, hs, hs, hs, 2, 2, 2, tcout).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return y.reshape(bf, 2 * hs, 2 * hs, 2 * hs, tcout)
+
+
+def brick_conv_up(coarse_feats, parent, oct_, w_packed, occ_fine, *, mask_out: bool = True):
+    """Transpose kernel-2 stride-2 conv: a fine brick pulls its parent's octant
+    sub-block and expands each coarse voxel into 2^3 fine voxels."""
+    bf, bs = occ_fine.shape[0], occ_fine.shape[1]
+    hs = bs // 2
+    bc, tcin = coarse_feats.shape[0], coarse_feats.shape[-1]
+    slabs = [
+        coarse_feats[:, hs * a : hs * (a + 1), hs * b : hs * (b + 1), hs * c : hs * (c + 1)]
+        .reshape(bc, -1)
+        for a, b, c in OCT_OFFSETS
+    ]
+    stack = torch.cat(slabs, dim=0)  # (8*Bc, hs^3*TCin)
+    oct_id = (oct_[:, 0] * 2 + oct_[:, 1]) * 2 + oct_[:, 2]
+    idx = torch.where(parent >= 0, oct_id * bc + parent, -1)
+    sub = take_rows(stack, idx).reshape(bf, hs, hs, hs, tcin)
+    out = _expand_octants(sub, w_packed)
+    return mask_bricks(out, occ_fine) if mask_out else out
+
+
+def brick_conv_up_from_rows(row_feats, parent_rows, w_packed, occ_fine, *,
+                            mask_out: bool = True):
+    """Transpose kernel-2 stride-2 conv across the brick/row boundary: fine
+    bricks pull their (bs/2)^3 parent-voxel block from coarse rows.
+
+    row_feats (Vc, T*Cin); parent_rows (Bf, hs, hs, hs) coarse row ids."""
+    bf, hs = parent_rows.shape[0], parent_rows.shape[1]
+    tcin = row_feats.shape[-1]
+    sub = take_rows(row_feats, parent_rows.reshape(-1)).reshape(bf, hs, hs, hs, tcin)
+    out = _expand_octants(sub, w_packed)
+    return mask_bricks(out, occ_fine) if mask_out else out
+
+
+def pack_dense_kernel(w: torch.Tensor, num_time: int) -> torch.Tensor:
+    """(K, KT, Cin, Cout) params -> (k, k, k, T*Cin, T*Cout) dense kernel."""
+    k3 = w.shape[0]
+    k = round(k3 ** (1 / 3))
+    assert k**3 == k3
+    wp = pack_time_toeplitz(w, num_time)
+    return wp.reshape(k, k, k, wp.shape[-2], wp.shape[-1])

@@ -1,0 +1,71 @@
+"""The port stands alone: sps_torch and chip_smoke.py import nothing of JAX,
+flax or sps_tpu, and the port's entry points default to the card."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sps_tpu")
+
+
+def _port_files():
+    files = [os.path.join(_ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(_ROOT, "sps_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        for name in {BANNED!r}:
+            sys.modules[name] = None  # any import of these raises ImportError
+        import sps_torch
+        mods = [m.name for m in pkgutil.walk_packages(sps_torch.__path__, "sps_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        loaded = [m for m, v in sys.modules.items()
+                  if v is not None and m.split(".")[0] in {BANNED!r}]
+        assert not loaded, loaded
+        print(len(mods))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_file_imports_jax_or_sps_tpu(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            names = [node.value] if node.value.split(".")[0] in BANNED else []
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in BANNED, f"{path}:{node.lineno} names {n}"
+
+
+def test_streaming_filter_defaults_to_the_card():
+    """device=None means CUDA; with no card the filter raises instead of
+    moving to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sps_torch import config
+    from sps_torch.stream.engine import StreamingFilter
+
+    cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingFilter(cfg, {}, np.zeros((10, 3), np.float32))
