@@ -18,7 +18,12 @@ Phases, each of which raises (and exits non-zero) on failure:
               CONV_MODE zband, ZBAND_LEVELS 1, INT8 off (full MinkUNet14
               width, full capacities, bf16, TOPO_EVERY 8), seeded random
               weights, 10 BLT-scale synthetic scans at 0.2 m steps; checks
-              overflow, scores and launch counts, prints latencies.
+              overflow, scores and launch counts, prints latencies;
+  5. microbench - K3's path: sps_torch/scripts/microbench_zband.py at
+              B = 11264, bs = 8, TC = 16, bf16 then f32 (TF32 off): every
+              L0 conv variant timed and held against the halo variant, the
+              zband_conv kernel at k = 3 against its plain version, K3's
+              launches counted over the bf16 run.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of the
 main path with torch.profiler and prints the device busy share, the time
@@ -45,6 +50,7 @@ PEAK_HBM_BYTES = 3.35e12
 REPLACES = {
     "zband_conv": "sps_tpu/ops/pallas_conv.py:217",
     "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
+    "microbench_zmm": "scripts/microbench_pallas.py::make_pallas_conv (_zmm_kernel :85-119)",
 }
 SOURCE = "sps_torch/csrc/zband_conv.cu"
 
@@ -355,6 +361,34 @@ def phase_path(card):
     return launches, filt, (scans, valids, labels)
 
 
+def phase_microbench(card):
+    """K3 (the probe's Pallas conv) is the zband_conv kernel at k = 3, on
+    the path of the port's microbenchmark. The microbenchmark sets TF32 off
+    and raises when an output is not finite, a variant disagrees with the
+    halo variant (bf16 within 2e-2, f32 within 1e-4 of the max-abs) or the
+    kernel with zband_conv_ref (as in phase 2). Returns the bf16 run, with
+    the kernel's launches in it as K3's."""
+    from sps_torch.ops import zband_conv as zc
+    from sps_torch.scripts import microbench_zband as mb
+
+    log("phase 5: microbenchmark (K3)")
+    runs = {}
+    for dtype, iters in (("bf16", "16"), ("f32", "2")):
+        for key in zc.LAUNCHES:
+            zc.LAUNCHES[key] = 0
+        r = mb.main(["--dtype", dtype, "--iters", iters])
+        launches = zc.LAUNCHES["zband_conv"]
+        if launches <= 0:
+            raise AssertionError(f"K3 ({dtype}): the zband_conv kernel was not launched")
+        runs[dtype] = dict(r, launches=launches)
+    r = runs["bf16"]
+    log(f"  bf16 [{card}]: " + ", ".join(
+        f"{name} {v['ms']:.3f} ms" for name, v in r["variants"].items())
+        + f", plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); "
+        f"launches {r['launches']} (bf16), {runs['f32']['launches']} (f32)")
+    return r
+
+
 def _device_us(evt) -> float:
     for key in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, key):
@@ -432,6 +466,7 @@ def main() -> int:
     launches, filt, data = phase_path(card)
     if "--profile" in sys.argv[1:]:
         phase_profile(filt, data, card)
+    k3 = phase_microbench(card)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -448,6 +483,18 @@ def main() -> int:
                                          "bound_ms", "bound_by", "gflop", "gbytes")}
                       for c in calls],
         })
+    kc = k3["variants"]["kernel-conv"]
+    times = {"ms": kc["ms"], "plain_ms": k3["plain_ms"],
+             "library_ms": k3["variants"]["conv2d"]["ms"], "bound_ms": k3["bound_ms"],
+             "bound_by": k3["bound_by"]}
+    kernels.append({
+        "name": "microbench_zmm", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["microbench_zmm"], "launches": k3["launches"],
+        "max_abs_err": kc["max_abs_err"], **times,
+        "calls": [{"call": f"microbench kernel-conv k=3 hz{tuple(k3['hz'])} "
+                           f"wz{tuple(k3['wz'])} {k3['dtype']}",
+                   **times, "gflop": k3["gflop_band"], "gbytes": k3["gbytes"]}],
+    })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
