@@ -4,13 +4,19 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and exits non-zero) on failure:
-  1. build  - compile the CUDA kernels from sps_torch/csrc with nvcc
-              (into build/torch_ext/) and load them;
+  1. build  - compile the CUDA kernels from sps_torch/csrc with nvcc, one
+              process per source, all at once (into build/torch_ext/), load
+              them and print ptxas's registers, spills and wgmma
+              serialization notes per kernel;
   2. kernels - hold each kernel against its plain PyTorch version on the
-              card, at small shapes and at the main path's full-width
-              shapes, in f32 (TF32 off; rtol/atol 1e-4) and bf16 (max error
-              within 2e-2 of the output's max-abs), and time the kernel, the
-              plain version and F.conv2d (CUDA events, median of 20);
+              card, at small shapes, at ragged shapes of the wgmma route
+              (zband_conv_sm90.cu: B 1, 3, 5; TCin 16, 32; N 128, 256; with
+              and without residual and relu) and at the main path's
+              full-width shapes, in f32 (TF32 off; rtol/atol 1e-4) and bf16
+              (max error within 2e-2 of the output's max-abs); print each
+              call's route; time the kernel, the WMMA kernel on the same
+              operands where the call takes the wgmma route, the plain
+              version and F.conv2d (CUDA events, median of 20);
   3. parity - the port's streaming filter on the card against the same
               filter on the CPU (the path the CPU tests hold against
               sps_tpu), f32, small config, full MinkUNet14 width;
@@ -18,12 +24,13 @@ Phases, each of which raises (and exits non-zero) on failure:
               CONV_MODE zband, ZBAND_LEVELS 1, INT8 off (full MinkUNet14
               width, full capacities, bf16, TOPO_EVERY 8), seeded random
               weights, 10 BLT-scale synthetic scans at 0.2 m steps; checks
-              overflow, scores and launch counts, prints latencies;
+              overflow, scores and launch counts per route (both block8
+              convs on wgmma, the k = 5 stem on wmma), prints latencies;
   5. microbench - K3's path: sps_torch/scripts/microbench_zband.py at
               B = 11264, bs = 8, TC = 16, bf16 then f32 (TF32 off): every
               L0 conv variant timed and held against the halo variant, the
               zband_conv kernel at k = 3 against its plain version, K3's
-              launches counted over the bf16 run.
+              launches counted over the bf16 run, all on the wgmma route.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of the
 main path with torch.profiler and prints the device busy share, the time
@@ -35,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -48,11 +56,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 REPLACES = {
-    "zband_conv": "sps_tpu/ops/pallas_conv.py:217",
+    "zband_conv": "sps_tpu/ops/pallas_conv.py:218",
     "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
     "microbench_zmm": "scripts/microbench_pallas.py::make_pallas_conv (_zmm_kernel :85-119)",
 }
-SOURCE = "sps_torch/csrc/zband_conv.cu"
+SOURCES = {  # the source of each kernel's calls on the main path
+    "zband_conv": "sps_torch/csrc/zband_conv.cu",
+    "zband_conv_fused": "sps_torch/csrc/zband_conv_sm90.cu",
+    "microbench_zmm": "sps_torch/csrc/zband_conv_sm90.cu",
+}
 
 
 def log(msg):
@@ -118,6 +130,33 @@ def run_kernel(name, c, relu=True):
                                k=c["k"], bs=c["bs"], relu=relu)
 
 
+def run_wmma(name, c, relu=True):
+    """The WMMA kernel (zband_conv.cu) on the same operands, through the
+    op with its route given: the yardstick of the wgmma route's calls."""
+    import torch
+
+    from sps_torch.ops import zband_conv as zc
+
+    stream = torch.cuda.current_stream().cuda_stream
+    op = getattr(torch.ops.sps_torch, name)
+    if name == "zband_conv":
+        return op(c["hz"], c["wz"], c["k"], c["bs"], zc.ROUTES["wmma"], stream)
+    return op(c["hz"], c["wz"], c["scale"], c["bias"], c["occ"], c["res"], c["k"], c["bs"],
+              relu, zc.ROUTES["wmma"], stream)
+
+
+def routed(name, c, relu=True):
+    """Run the kernel once; return (output, the route its launch took)."""
+    from sps_torch.ops import zband_conv as zc
+
+    before = dict(zc.ROUTE_LAUNCHES[name])
+    out = run_kernel(name, c, relu)
+    taken = [r for r, n in zc.ROUTE_LAUNCHES[name].items() if n != before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"{name}: one launch counted on routes {taken}")
+    return out, taken[0]
+
+
 def run_plain(name, c, relu=True):
     """The plain version on f32 copies of the same operands."""
     from sps_torch.ops import zband_conv as zc
@@ -129,11 +168,13 @@ def run_plain(name, c, relu=True):
                                    f["res"], k=f["k"], bs=f["bs"], relu=relu)
 
 
-def check(name, c, relu, tag):
-    """Kernel vs plain version; returns the max abs error."""
+def check(name, c, relu, tag, route):
+    """Kernel vs plain version on the expected route; returns the max abs error."""
     import torch
 
-    got = run_kernel(name, c, relu)
+    got, taken = routed(name, c, relu)
+    if taken != route:
+        raise AssertionError(f"{name} {tag}: took route {taken}, expected {route}")
     want = run_plain(name, c, relu)
     torch.cuda.synchronize()
     err = (got.float() - want).abs()
@@ -145,7 +186,8 @@ def check(name, c, relu, tag):
     else:
         ok = max_err <= 2e-2 * max(scale, 1e-6)
         bar = "2e-2 x max-abs"
-    log(f"  {name:17s} {tag:44s} max_abs_err {max_err:.3e} (out max-abs {scale:.3e}; {bar})")
+    log(f"  {name:17s} {tag:44s} {taken:5s} max_abs_err {max_err:.3e} "
+        f"(out max-abs {scale:.3e}; {bar})")
     if not ok:
         raise AssertionError(f"{name} {tag}: kernel disagrees with its plain version")
     return max_err
@@ -168,7 +210,7 @@ def work(c, fused):
     return flops, nbytes
 
 
-def phase_kernels():
+def phase_kernels(card):
     import torch
     import torch.nn.functional as F
 
@@ -184,8 +226,20 @@ def phase_kernels():
         for i, (k, bs, tcin, tcout, b, wres, relu) in enumerate(small):
             c = make_case(k, bs, tcin, tcout, b, dtype, seed=i, with_res=wres)
             tag = f"small k={k} bs={bs} tcin={tcin} tcout={tcout} B={b} {str(dtype)[6:]}"
-            check("zband_conv", c, relu, tag)
-            check("zband_conv_fused", c, relu, tag + f" res={wres} relu={relu}")
+            check("zband_conv", c, relu, tag, "wmma")
+            check("zband_conv_fused", c, relu, tag + f" res={wres} relu={relu}", "wmma")
+    # The wgmma route at ragged B (not a multiple of its 4 bricks per block),
+    # both channel widths of L0 and one and two 128-column tiles, bf16.
+    ragged = [  # (tcin, tcout, B, with_res, relu)
+        (16, 16, 1, True, True), (32, 16, 3, False, True), (16, 32, 5, True, False),
+        (32, 32, 3, True, True), (16, 16, 5, False, False), (32, 32, 1, False, True),
+    ]
+    for i, (tcin, tcout, b, wres, relu) in enumerate(ragged):
+        c = make_case(3, 8, tcin, tcout, b, torch.bfloat16, seed=50 + i, with_res=wres)
+        tag = f"ragged tcin={tcin} tcout={tcout} B={b} bfloat16"
+        errs["zband_conv"] = max(errs["zband_conv"], check("zband_conv", c, relu, tag, "wgmma"))
+        errs["zband_conv_fused"] = max(errs["zband_conv_fused"], check(
+            "zband_conv_fused", c, relu, tag + f" res={wres} relu={relu}", "wgmma"))
 
     # The main path's L0 shapes at B = 11264 bricks (config.yaml, batch 1):
     # the k=5 stem, block8_0.conv1 (no residual) and conv2 (with residual).
@@ -196,10 +250,11 @@ def phase_kernels():
     ]
     per_call = []
     for i, (name, where, k, tcin, tcout, wres) in enumerate(full):
+        route = "wgmma" if k == 3 else "wmma"
         for dtype in (torch.float32, torch.bfloat16):
             c = make_case(k, 8, tcin, tcout, 11264, dtype, seed=100 + i, with_res=wres)
             tag = f"full {where} hz{tuple(c['hz'].shape)} {str(dtype)[6:]}"
-            e = check(name, c, True, tag)
+            e = check(name, c, True, tag, route if dtype == torch.bfloat16 else "wmma")
             if dtype == torch.bfloat16:
                 errs[name] = max(errs[name], e)
             del c
@@ -207,18 +262,20 @@ def phase_kernels():
         x_nchw = c["hz"].permute(0, 3, 1, 2)
         w_oihw = c["wz"].permute(3, 2, 0, 1)
         ms = time_ms(lambda: run_kernel(name, c))
+        wmma_ms = time_ms(lambda: run_wmma(name, c)) if route == "wgmma" else ms
         plain_ms = time_ms(lambda: run_plain(name, c))
         library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
         flops, nbytes = work(c, name == "zband_conv_fused")
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-        per_call.append(dict(name=name, call=where, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             gflop=flops / 1e9, gbytes=nbytes / 1e9))
-        log(f"  time {name:17s} {where:15s} bf16: kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-            f"F.conv2d {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+        per_call.append(dict(name=name, call=where, route=route, ms=ms, wmma_ms=wmma_ms,
+                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, gflop=flops / 1e9, gbytes=nbytes / 1e9))
+        log(f"  time {name:17s} {where:15s} bf16 [{card}]: kernel ({route}) {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), wmma kernel {wmma_ms:.3f} ms "
+            f"({wmma_ms / ms:.2f}x), plain {plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB)")
         del c, x_nchw, w_oihw
         torch.cuda.empty_cache()
     return errs, per_call
@@ -317,8 +374,7 @@ def phase_path(card):
     pose = np.eye(4, dtype=np.float32)  # scans are already in the map frame
 
     torch.cuda.reset_peak_memory_stats()
-    for key in zc.LAUNCHES:
-        zc.LAUNCHES[key] = 0
+    zc.reset_launches()
     lat = []
     results = []
     for i in range(n_scans):
@@ -329,6 +385,7 @@ def phase_path(card):
         lat.append((time.perf_counter() - t) * 1e3)
         results.append((scores, keep, stats))
     launches = dict(zc.LAUNCHES)
+    routes = {name: dict(r) for name, r in zc.ROUTE_LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
 
     for i, (scores, keep, stats) in enumerate(results):
@@ -353,11 +410,13 @@ def phase_path(card):
     p50 = statistics.median(lat)
     log(f"  per-scan latency ms {[round(x, 2) for x in lat]}; p50 {p50:.2f} ms; "
         f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    want = {"zband_conv": n_scans, "zband_conv_fused": 2 * n_scans}
-    log(f"  kernel launches on the path: {launches} (expected {want})")
-    for key, n in want.items():
-        if launches[key] != n:
-            raise AssertionError(f"{key} launched {launches[key]} times, expected {n}")
+    want = {"zband_conv": {"wmma": n_scans, "wgmma": 0},
+            "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans}}
+    log(f"  kernel launches on the path: {launches}, per route {routes} (expected {want})")
+    for key, per_route in want.items():
+        if routes[key] != per_route or launches[key] != sum(per_route.values()):
+            raise AssertionError(f"{key} launched {launches[key]} times, per route "
+                                 f"{routes[key]}, expected {per_route}")
     return launches, filt, (scans, valids, labels)
 
 
@@ -374,18 +433,24 @@ def phase_microbench(card):
     log("phase 5: microbenchmark (K3)")
     runs = {}
     for dtype, iters in (("bf16", "16"), ("f32", "2")):
-        for key in zc.LAUNCHES:
-            zc.LAUNCHES[key] = 0
+        zc.reset_launches()
         r = mb.main(["--dtype", dtype, "--iters", iters])
         launches = zc.LAUNCHES["zband_conv"]
+        routes = dict(zc.ROUTE_LAUNCHES["zband_conv"])
         if launches <= 0:
             raise AssertionError(f"K3 ({dtype}): the zband_conv kernel was not launched")
-        runs[dtype] = dict(r, launches=launches)
+        # bf16 at k = 3 qualifies for the wgmma route; f32 does not.
+        route = "wgmma" if dtype == "bf16" else "wmma"
+        if routes[route] != launches:
+            raise AssertionError(f"K3 ({dtype}): launches per route {routes}, expected all "
+                                 f"{launches} on {route}")
+        runs[dtype] = dict(r, launches=launches, route=route)
     r = runs["bf16"]
     log(f"  bf16 [{card}]: " + ", ".join(
         f"{name} {v['ms']:.3f} ms" for name, v in r["variants"].items())
         + f", plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); "
-        f"launches {r['launches']} (bf16), {runs['f32']['launches']} (f32)")
+        f"launches {r['launches']} (bf16, {r['route']}), {runs['f32']['launches']} "
+        f"(f32, {runs['f32']['route']})")
     return r
 
 
@@ -456,12 +521,16 @@ def main() -> int:
     log(f"  built/loaded {', '.join(os.path.relpath(p, HERE) for p in zc.SOURCES)} "
         f"in {time.time() - t0:.1f} s")
     for line in zc.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        entry = re.search(r"entry function '\S*?\d(zband_\w*?kernel)I(\w*?)EEvNS", line)
+        if entry:
+            log(f"  ptxas: {entry.group(1)}<{entry.group(2)}>")
+        elif "registers" in line or "spill" in line or "(C75" in line:
+            # C75xx: ptxas serialized wgmma or injected waits (a slow kernel)
+            log(f"  ptxas:   {line.strip()}")
     card = card_line()
     log(f"  card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    errs, per_call = phase_kernels()
+    errs, per_call = phase_kernels(card)
     phase_parity()
     launches, filt, data = phase_path(card)
     if "--profile" in sys.argv[1:]:
@@ -474,13 +543,14 @@ def main() -> int:
         total = {key: sum(c[key] for c in calls)
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": calls[0]["bound_by"],
             "library_ms": total["library_ms"],
-            "calls": [{k: c[k] for k in ("call", "ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by", "gflop", "gbytes")}
+            "calls": [{k: c[k] for k in ("call", "route", "ms", "wmma_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by", "gflop",
+                                         "gbytes")}
                       for c in calls],
         })
     kc = k3["variants"]["kernel-conv"]
@@ -488,11 +558,11 @@ def main() -> int:
              "library_ms": k3["variants"]["conv2d"]["ms"], "bound_ms": k3["bound_ms"],
              "bound_by": k3["bound_by"]}
     kernels.append({
-        "name": "microbench_zmm", "route": "cuda", "source": SOURCE,
+        "name": "microbench_zmm", "route": "cuda", "source": SOURCES["microbench_zmm"],
         "replaces": REPLACES["microbench_zmm"], "launches": k3["launches"],
         "max_abs_err": kc["max_abs_err"], **times,
         "calls": [{"call": f"microbench kernel-conv k=3 hz{tuple(k3['hz'])} "
-                           f"wz{tuple(k3['wz'])} {k3['dtype']}",
+                           f"wz{tuple(k3['wz'])} {k3['dtype']}", "route": k3["route"],
                    **times, "gflop": k3["gflop_band"], "gbytes": k3["gbytes"]}],
     })
     print(card, flush=True)

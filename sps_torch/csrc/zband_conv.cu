@@ -30,12 +30,17 @@
 // main path). The epilogue goes through a per-warp shared scratch tile so
 // that it reads and writes global memory in row order.
 //
-// What bounds it on this card: at the slice's L0 shapes (B = 11264, bs = 8)
-// the work is 0.1-0.5 TFLOP per call against 0.3-1.1 GB moved, so the
-// tensor cores bound it (about 300-500 operations per byte, above the
-// H100's ~295 ridge). This version uses WMMA rather than wgmma/TMA and
-// computes the band's zeros (70% of the FLOPs at k=3), so it stays well
-// below that bound; both are later work.
+// Which calls it serves: those that sps_torch/ops/zband_conv.route does not
+// send to the wgmma kernel (zband_conv_sm90.cu, bf16 at k = 3, bs = 8,
+// C % 32 == 0, N % 128 == 0): on the main path the k = 5 stem (hz
+// (11264, 12, 12, 24), wz (5, 5, 24, 128), once per scan); besides it every
+// f32 call and every small or ragged-width shape of the tests.
+//
+// What bounds it on this card: the stem's 110.7 GFLOP against 0.263 GB
+// moved is bound by the tensor cores (0.112 ms). This version uses WMMA
+// rather than wgmma/TMA and computes the band's zeros, so it stays well
+// below that bound; the stem's own wgmma design is later work (25 taps of
+// weight do not fit one shared-memory stage as k = 3's 9 do).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,11 +1,14 @@
-// PyTorch binding of the z-band kernels in zband_conv.cu: registers
-// torch.ops.sps_torch.zband_conv and torch.ops.sps_torch.zband_conv_fused
-// for CUDA tensors. The kernel file has a plain C entry point and no
-// PyTorch headers; this file includes only the operator registry and one
-// ATen operator, so both build in seconds (sps_torch/ops/zband_conv.py).
+// PyTorch binding of the z-band kernels in zband_conv.cu (route 0, WMMA) and
+// zband_conv_sm90.cu (route 1, wgmma): registers torch.ops.sps_torch.zband_conv
+// and torch.ops.sps_torch.zband_conv_fused for CUDA tensors. The kernel files
+// have plain C entry points and no PyTorch headers; this file includes only
+// the operator registry and one ATen operator, so all build in seconds
+// (sps_torch/ops/zband_conv.py).
 //
-// The caller passes the CUDA stream to launch on (the current stream, as
-// an integer handle) and makes the tensors' device current.
+// The caller passes the route (zband_conv.route picks it from the shape), the
+// CUDA stream to launch on (the current stream, as an integer handle) and
+// makes the tensors' device current. A route that does not take the call's
+// shape raises; nothing reroutes.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -15,6 +18,10 @@ extern "C" int sps_zband_conv(int dtype, int fused, const void* hz, const void* 
                               const float* scale, const float* bias, const void* occ,
                               const void* res, void* out, long long batch, int k, int bs,
                               int C, int N, int relu, void* stream);
+extern "C" int sps_zband_conv_sm90(int fused, const void* hz, const void* wz, const float* scale,
+                                   const float* bias, const void* occ, const void* res, void* out,
+                                   long long batch, int k, int bs, int C, int N, int relu,
+                                   void* stream);
 
 namespace {
 
@@ -25,7 +32,8 @@ void check_operand(const at::Tensor& t, const at::Tensor& hz, const char* name) 
 
 at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* scale,
                   const at::Tensor* bias, const at::Tensor* occ, const at::Tensor* res,
-                  int64_t k, int64_t bs, bool relu, int64_t stream) {
+                  int64_t k, int64_t bs, bool relu, int64_t route, int64_t stream) {
+  TORCH_CHECK(route == 0 || route == 1, "route must be 0 (wmma) or 1 (wgmma)");
   TORCH_CHECK(hz.is_cuda(), "zband kernels take CUDA tensors");
   const bool bf16 = hz.scalar_type() == at::kBFloat16;
   TORCH_CHECK(bf16 || hz.scalar_type() == at::kFloat, "hz must be float32 or bfloat16");
@@ -56,36 +64,49 @@ at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* 
     }
   }
   at::Tensor out = at::empty({b, bs, bs, n}, hz.options());
-  const int err = sps_zband_conv(
-      bf16 ? 1 : 0, fused ? 1 : 0, hz.data_ptr(), wz.data_ptr(),
-      fused ? scale->data_ptr<float>() : nullptr, fused ? bias->data_ptr<float>() : nullptr,
-      fused ? occ->data_ptr() : nullptr, res != nullptr ? res->data_ptr() : nullptr,
-      out.data_ptr(), b, static_cast<int>(k), static_cast<int>(bs), static_cast<int>(c),
-      static_cast<int>(n), relu ? 1 : 0, reinterpret_cast<void*>(stream));
-  TORCH_CHECK(err == 0, "zband kernel launch failed: cudaError ", err);
+  const float* sc = fused ? scale->data_ptr<float>() : nullptr;
+  const float* bi = fused ? bias->data_ptr<float>() : nullptr;
+  const void* oc = fused ? occ->data_ptr() : nullptr;
+  const void* rs = res != nullptr ? res->data_ptr() : nullptr;
+  int err;
+  if (route == 1) {
+    TORCH_CHECK(bf16, "route wgmma takes bfloat16 only");
+    err = sps_zband_conv_sm90(fused ? 1 : 0, hz.data_ptr(), wz.data_ptr(), sc, bi, oc, rs,
+                              out.data_ptr(), b, static_cast<int>(k), static_cast<int>(bs),
+                              static_cast<int>(c), static_cast<int>(n), relu ? 1 : 0,
+                              reinterpret_cast<void*>(stream));
+    TORCH_CHECK(err != -1, "route wgmma does not take this call: it needs k = 3, bs = 8, ",
+                "C % 32 == 0, N % 128 == 0 and 16-byte aligned operands");
+  } else {
+    err = sps_zband_conv(bf16 ? 1 : 0, fused ? 1 : 0, hz.data_ptr(), wz.data_ptr(), sc, bi, oc,
+                         rs, out.data_ptr(), b, static_cast<int>(k), static_cast<int>(bs),
+                         static_cast<int>(c), static_cast<int>(n), relu ? 1 : 0,
+                         reinterpret_cast<void*>(stream));
+  }
+  TORCH_CHECK(err == 0, "zband kernel launch failed (route ", route, "): cudaError ", err);
   return out;
 }
 
 at::Tensor zband_conv(const at::Tensor& hz, const at::Tensor& wz, int64_t k, int64_t bs,
-                      int64_t stream) {
-  return launch(hz, wz, nullptr, nullptr, nullptr, nullptr, k, bs, false, stream);
+                      int64_t route, int64_t stream) {
+  return launch(hz, wz, nullptr, nullptr, nullptr, nullptr, k, bs, false, route, stream);
 }
 
 at::Tensor zband_conv_fused(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor& scale,
                             const at::Tensor& bias, const at::Tensor& occ,
                             const std::optional<at::Tensor>& res, int64_t k, int64_t bs,
-                            bool relu, int64_t stream) {
+                            bool relu, int64_t route, int64_t stream) {
   return launch(hz, wz, &scale, &bias, &occ, res.has_value() ? &*res : nullptr, k, bs, relu,
-                stream);
+                route, stream);
 }
 
 }  // namespace
 
 TORCH_LIBRARY(sps_torch, m) {
-  m.def("zband_conv(Tensor hz, Tensor wz, int k, int bs, int stream) -> Tensor");
+  m.def("zband_conv(Tensor hz, Tensor wz, int k, int bs, int route, int stream) -> Tensor");
   m.def(
       "zband_conv_fused(Tensor hz, Tensor wz, Tensor scale, Tensor bias, Tensor occ, "
-      "Tensor? res, int k, int bs, bool relu, int stream) -> Tensor");
+      "Tensor? res, int k, int bs, bool relu, int route, int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(sps_torch, CUDA, m) {

@@ -11,13 +11,19 @@ axes carry the folded z dimension:
 inference epilogue `occ * [relu](acc * scale + bias [+ res])` in f32
 before the one cast.
 
-On a CUDA tensor both launch the kernel in sps_torch/csrc/zband_conv.cu
-through the ops that sps_torch/csrc/zband_conv_op.cpp registers
-(torch.ops.sps_torch.*). The library is built at first use into
-build/torch_ext/ (nvcc for sm_90a and the host compiler, started
-together, then one link) and rebuilt when a source changes. A build or
-launch failure raises. On a CPU tensor they compute the plain version
-(`*_ref`), which the tests and chip_smoke.py also hold the kernel against.
+On a CUDA tensor both launch a hand-written kernel through the ops that
+sps_torch/csrc/zband_conv_op.cpp registers (torch.ops.sps_torch.*). The
+call's shape picks the kernel (`route`): "wgmma" runs
+sps_torch/csrc/zband_conv_sm90.cu (bf16, k = 3, bs = 8, C % 32 == 0,
+N % 128 == 0, 16-byte aligned: both block8 convs of L0 and the k = 3
+microbenchmark), "wmma" runs sps_torch/csrc/zband_conv.cu (every other
+shape: the k = 5 stem, f32, small shapes). No flag picks a route, and a
+route that does not take a shape raises. The library is built at first
+use into build/torch_ext/ (one nvcc per CUDA source for sm_90a and the
+host compiler, all started together, then one link) and rebuilt when a
+source changes. A build or launch failure raises. On a CPU tensor they
+compute the plain version (`*_ref`), which the tests and chip_smoke.py
+also hold the kernels against.
 """
 
 from __future__ import annotations
@@ -31,11 +37,26 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_op.cpp")
+CUDA_SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_sm90.cu")
+OP_SOURCE = CSRC / "zband_conv_op.cpp"
+SOURCES = (*CUDA_SOURCES, OP_SOURCE)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 
-# One count per kernel launch; incremented only where the kernel launches.
+# Route name -> the op's route argument: 0 runs zband_conv.cu (WMMA), 1
+# zband_conv_sm90.cu (wgmma).
+ROUTES = {"wmma": 0, "wgmma": 1}
+
+# One count per kernel launch; incremented only where the kernel launches,
+# in total and per route.
 LAUNCHES = {"zband_conv": 0, "zband_conv_fused": 0}
+ROUTE_LAUNCHES = {name: dict.fromkeys(ROUTES, 0) for name in LAUNCHES}
+
+# The wgmma route's tile (zband_conv_sm90.cu): channels per stage, columns
+# per block, bricks per block, threads, stages, the channel multiple it
+# takes, and the block's shared memory limit on Hopper.
+SM90_CK, SM90_BN, SM90_BRICKS, SM90_THREADS, SM90_STAGES = 16, 128, 4, 256, 4
+SM90_C_MULTIPLE = 32
+SMEM_LIMIT = 232448
 
 _loaded = False
 build_log = ""
@@ -79,38 +100,113 @@ def build() -> None:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         stem = BUILD_DIR / f"zband_conv_{digest}.{os.getpid()}"
-        cu_o, op_o, tmp = (Path(f"{stem}{ext}") for ext in (".cu.o", ".op.o", ".tmp.so"))
+        objs = [Path(f"{stem}.{src.name}.o") for src in SOURCES]
+        tmp = Path(f"{stem}.tmp.so")
         nvcc = _nvcc()
         abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
         build_log = _run([
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", str(SOURCES[0]), "-o", str(cu_o)],
+            *([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
+              for src, obj in zip(CUDA_SOURCES, objs)),
             [os.environ.get("CXX", "g++"), "-std=c++17", "-O2", "-fPIC", "-w",
              f"-D_GLIBCXX_USE_CXX11_ABI={abi}",
              *(f"-I{p}" for p in cpp_extension.include_paths()),
-             "-c", str(SOURCES[1]), "-o", str(op_o)],
+             "-c", str(OP_SOURCE), "-o", str(objs[-1])],
         ])
         libdir = cpp_extension.library_paths()[0]
-        build_log += _run([[nvcc, "-shared", str(cu_o), str(op_o), "-o", str(tmp),
+        build_log += _run([[nvcc, "-shared", *map(str, objs), "-o", str(tmp),
                             f"-L{libdir}", "-lc10", "-ltorch", "-ltorch_cpu",
                             "-Xlinker", f"-rpath,{libdir}"]])
         os.replace(tmp, so)
-        cu_o.unlink()
-        op_o.unlink()
+        for obj in objs:
+            obj.unlink()
     torch.ops.load_library(str(so))
     _loaded = True
 
 
-def _launch(name: str, hz: torch.Tensor, *args):
-    """Launch the named kernel on the current stream of hz's device; the op
-    checks shapes, dtypes and contiguity and raises on what it cannot take."""
+def reset_launches() -> None:
+    """Set every launch count, in total and per route, to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+        ROUTE_LAUNCHES[name] = dict.fromkeys(ROUTES, 0)
+
+
+def route(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int, *operands) -> str:
+    """The kernel a CUDA call runs, from its shape alone: "wgmma"
+    (zband_conv_sm90.cu) for bf16 at k = 3 and bs * bs = 64 with C % 32 == 0,
+    N % 128 == 0 and every operand (hz, wz and the fused call's scale, bias,
+    occ, res) 16-byte aligned; else "wmma" (zband_conv.cu)."""
+    ok = (hz.dtype == torch.bfloat16 and k == 3 and bs * bs == 64
+          and hz.shape[-1] % SM90_C_MULTIPLE == 0 and wz.shape[-1] % SM90_BN == 0
+          and all(t.data_ptr() % 16 == 0 for t in (hz, wz, *operands) if t is not None))
+    return "wgmma" if ok else "wmma"
+
+
+def sm90_smem_plan(h: int = 10, taps: int = 9) -> dict[str, int]:
+    """One stage of the wgmma route's shared memory, in bytes, with the
+    formulas of zband_conv_sm90.cu: a brick's halo chunk as K-major core
+    matrices [8-channel group][pixel][8 channels] (a_sbo: next 8 output
+    rows, i.e. the next xo; a_lbo: next 8 channels), then the taps' weight
+    chunks as MN-major core matrices [8-channel group][8-column group][8][8]
+    (b_sbo: next 8 columns; b_lbo: next 8 channels)."""
+    a_lbo, b_sbo = h * h * 16, 8 * 16
+    halo = SM90_CK // 8 * a_lbo
+    w_tap = SM90_CK * SM90_BN * 2
+    w_offset = SM90_BRICKS * halo
+    return dict(a_sbo=h * 16, a_lbo=a_lbo, halo_bytes=halo, b_sbo=b_sbo,
+                b_lbo=SM90_BN // 8 * b_sbo, w_tap_bytes=w_tap, w_offset=w_offset,
+                stage_bytes=w_offset + taps * w_tap)
+
+
+def sm90_descriptors(brick: int, kx: int, ky: int, ks: int, h: int = 10, k: int = 3):
+    """(start, lbo, sbo) in bytes from the stage's base of the A and B
+    operands of one wgmma: the block's brick `brick`, tap (kx, ky), k-step
+    ks (channels 16*ks .. +16 of the chunk)."""
+    p = sm90_smem_plan(h, k * k)
+    a = (brick * p["halo_bytes"] + ks * 2 * p["a_lbo"] + (kx * h + ky) * 16,
+         p["a_lbo"], p["a_sbo"])
+    b = (p["w_offset"] + (kx * k + ky) * p["w_tap_bytes"] + ks * 2 * p["b_lbo"],
+         p["b_lbo"], p["b_sbo"])
+    return a, b
+
+
+def sm90_halo_piece(i: int, c: int, c0: int, h: int = 10):
+    """(brick, element offset into hz from the block's first brick, byte
+    offset from the stage's base) of the halo's 16-byte copy i
+    (zband_conv_sm90.cu::load_chunk): channel group i % (CK/8) of pixel
+    i / (CK/8)."""
+    groups = SM90_CK // 8
+    g, rest = i % groups, i // groups
+    brick, pix = divmod(rest, h * h)
+    p = sm90_smem_plan(h)
+    return (brick, (brick * h * h + pix) * c + c0 + g * 8,
+            brick * p["halo_bytes"] + g * p["a_lbo"] + pix * 16)
+
+
+def sm90_weight_piece(tid: int, it: int, c: int, n: int, c0: int, n0: int):
+    """(element offset into wz, byte offset from the stage's base) of the
+    weight's 16-byte copy of thread tid on step it of load_chunk (tap
+    it / sweeps, sweep it % sweeps)."""
+    sweeps = SM90_CK * SM90_BN // 8 // SM90_THREADS
+    r, j, kg = tid & 7, (tid >> 3) & 15, tid >> 7
+    tap, sweep = divmod(it, sweeps)
+    p = sm90_smem_plan()
+    return ((tap * c + c0 + (kg + 2 * sweep) * 8 + r) * n + n0 + j * 8,
+            p["w_offset"] + tid * 16 + tap * p["w_tap_bytes"] + sweep * SM90_THREADS * 16)
+
+
+def _launch(name: str, path: str, hz: torch.Tensor, *args):
+    """Launch the named kernel on route `path`, on the current stream of
+    hz's device; the op checks shapes, dtypes and contiguity and raises on
+    what it cannot take, and on a shape the route does not take."""
     if hz.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {hz.device}")
     build()
     with torch.cuda.device(hz.device):
         stream = torch.cuda.current_stream().cuda_stream
-        out = getattr(torch.ops.sps_torch, name)(hz, *args, stream)
+        out = getattr(torch.ops.sps_torch, name)(hz, *args, ROUTES[path], stream)
     LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[name][path] += 1
     return out
 
 
@@ -145,7 +241,7 @@ def zband_conv(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int) -> torch.Ten
     Returns (B, bs, bs, bs*TCout) in hz.dtype."""
     if hz.device.type == "cpu":
         return zband_conv_ref(hz, wz, k, bs)
-    return _launch("zband_conv", hz, wz, k, bs)
+    return _launch("zband_conv", route(hz, wz, k, bs), hz, wz, k, bs)
 
 
 def zband_conv_fused(hz, wz, scale, bias, occ, res=None, *, k: int, bs: int,
@@ -156,4 +252,5 @@ def zband_conv_fused(hz, wz, scale, bias, occ, res=None, *, k: int, bs: int,
     channel-repeated occupancy; res: optional residual of the same shape."""
     if hz.device.type == "cpu":
         return zband_conv_fused_ref(hz, wz, scale, bias, occ, res, k=k, bs=bs, relu=relu)
-    return _launch("zband_conv_fused", hz, wz, scale, bias, occ, res, k, bs, relu)
+    path = route(hz, wz, k, bs, scale, bias, occ, res)
+    return _launch("zband_conv_fused", path, hz, wz, scale, bias, occ, res, k, bs, relu)

@@ -4,7 +4,9 @@ Counterpart of scripts/microbench_pallas.py. The probe's Pallas kernel
 (make_pallas_conv -> _zmm_kernel: the 9 banded matmuls of a k = 3 z-band
 conv, whole weight resident, f32 accumulation, one cast) computes the
 function of zband_conv at k = 3, so here it is the port's hand-written
-zband_conv CUDA kernel (sps_torch/csrc/zband_conv.cu) launched at k = 3.
+zband_conv kernel launched at k = 3: in bf16 at the default widths its
+wgmma route (sps_torch/csrc/zband_conv_sm90.cu), in f32 and at widths
+that route does not take its wmma route (sps_torch/csrc/zband_conv.cu).
 
 Variants (the probe's names in brackets):
   halo         brick.brick_conv: halo + F.conv3d                 [xla-halo]
@@ -22,7 +24,8 @@ after two warm-up calls; the time is the least of three such runs divided
 by --iters. The probe chained its calls inside one jit only to hide the
 TPU's dispatch; on the card a call of a millisecond or more hides its own
 launch. The probe's --g (the VMEM block of the Pallas grid) has no
-counterpart: the CUDA kernel's block is fixed at 128 output rows. TFLOP/s
+counterpart: a CUDA block is fixed at 256 output rows (4 bricks) on the
+wgmma route and 128 on the wmma route. TFLOP/s
 count dense FLOPs for halo and the band's FLOPs (zeros included) for the
 other variants; K3's bound is max(band FLOPs / peak, bytes / HBM rate).
 
@@ -178,13 +181,15 @@ def main(argv=None) -> dict:
     res = {
         "device": torch.cuda.get_device_name(dev) if timed else "cpu", "dtype": dt,
         "b": b, "bs": bs, "tc": tc, "tcout": tco, "iters": args.iters,
-        "hz": list(hz.shape), "wz": list(wz.shape), "gflop_dense": dense / 1e9,
+        "hz": list(hz.shape), "wz": list(wz.shape),
+        "route": zc.route(hz, wz, 3, bs) if timed else None, "gflop_dense": dense / 1e9,
         "gflop_band": band / 1e9, "gbytes": nbytes / 1e9,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "variants": {},
     }
-    print(f"B={b} bs={bs} TC={tc}->{tco} {dt} on {res['device']}: dense {dense / 1e9:.1f} "
+    print(f"B={b} bs={bs} TC={tc}->{tco} {dt} on {res['device']} (kernel route "
+          f"{res['route']}): dense {dense / 1e9:.1f} "
           f"GFLOP, band {band / 1e9:.1f} GFLOP, K3 bytes {nbytes / 1e9:.3f} GB; K3 bound "
           f"{res['bound_ms']:.3f} ms ({res['bound_by']}; {PEAK_FLOPS[dt] / 1e12:.0f} TFLOP/s, "
           f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s)", flush=True)

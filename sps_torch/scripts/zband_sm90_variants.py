@@ -1,0 +1,156 @@
+"""Time variants of the wgmma z-band kernel beside the built one, on the card.
+
+    python3 -m sps_torch.scripts.zband_sm90_variants [VARIANT.cu ...] [--sweep]
+
+Each VARIANT.cu is a version of sps_torch/csrc/zband_conv_sm90.cu (an
+earlier revision, or a trial copy) with the same plain C entry point
+sps_zband_conv_sm90. Each is compiled by nvcc for sm_90a into a shared
+library under build/torch_ext/variants/ and called through ctypes beside
+the built kernel (the wgmma route of sps_torch.ops.zband_conv).
+
+First every kernel is held against the plain version (within 2e-2 of the
+output's max-abs, bf16 against f32) at ragged and full shapes, and each
+variant's output is compared bit for bit with the built kernel's. Then
+each is timed at the L0 shapes (B = 11264): unfused at C = 32, K3 at
+TC 16 (C = 160) and C = 320, block8_0.conv1, block8_0.conv2 (with
+residual) and K3 at TC 32 (C = 320, N = 256). A time is the least of 3
+runs of 20 back-to-back calls (CUDA events), taken in the order
+variants, built, built, variants. --sweep also times the built kernel
+unfused over C = 32, 64, 160, 320, which splits its time into a fixed
+part and a part per 16-channel chunk. Prints one line per shape and a
+JSON line of all times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import subprocess
+from pathlib import Path
+
+import torch
+
+from sps_torch.ops import zband_conv as zc
+
+VARIANT_DIR = zc.BUILD_DIR / "variants"
+CHECKS = [  # (B, C, N, fused, res): ragged B, two column tiles, a full shape
+    (1, 32, 128, True, True), (3, 64, 256, False, False), (5, 160, 128, True, False),
+    (535, 32, 256, True, True), (11264, 320, 128, True, False),
+]
+TIMED = {  # name: (C, N, fused, res) at B = 11264
+    "C32 unfused": (32, 128, False, False), "K3 TC16": (160, 128, False, False),
+    "C320 unfused": (320, 128, False, False), "block8_0.conv1": (320, 128, True, False),
+    "block8_0.conv2": (160, 128, True, True), "K3 TC32": (320, 256, False, False),
+}
+
+
+def load_variant(src: Path):
+    """Compile one variant and return its C entry point."""
+    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
+    so = VARIANT_DIR / f"{src.stem}.so"
+    subprocess.run([zc._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-Xcompiler", "-fPIC", "-shared", str(src), "-o", str(so)], check=True)
+    fn = ctypes.CDLL(str(so)).sps_zband_conv_sm90
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def call_variant(fn, hz, wz, ep):
+    b, c, n = hz.shape[0], hz.shape[-1], wz.shape[-1]
+    out = torch.empty((b, 8, 8, n), dtype=hz.dtype, device=hz.device)
+    ptrs = [None if t is None else t.data_ptr() for t in (ep or (None,) * 4)]
+    err = fn(int(ep is not None), hz.data_ptr(), wz.data_ptr(), *ptrs, out.data_ptr(), b, 3, 8,
+             c, n, 1, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"variant launch failed: {err}")
+    return out
+
+
+def call_built(hz, wz, ep):
+    if ep is None:
+        return zc.zband_conv(hz, wz, 3, 8)
+    return zc.zband_conv_fused(hz, wz, *ep, k=3, bs=8)
+
+
+def make(g, b, c, n, fused, res):
+    """Seeded bf16 operands, as chip_smoke.py's make_case draws them."""
+    hz = torch.rand((b, 10, 10, c), generator=g, device="cuda").bfloat16()
+    wz = (torch.randn((3, 3, c, n), generator=g, device="cuda")
+          * (2.0 / (27 * c / 10)) ** 0.5).bfloat16()
+    if not fused:
+        return hz, wz, None
+    occ = (torch.rand((b, 8, 8, n), generator=g, device="cuda") < 0.5).bfloat16()
+    r = (torch.randn((b, 8, 8, n), generator=g, device="cuda") * occ).bfloat16() if res else None
+    return hz, wz, (0.5 + torch.rand(n, generator=g, device="cuda"),
+                    0.1 * torch.randn(n, generator=g, device="cuda"), occ, r)
+
+
+def time_ms(fn, iters=20) -> float:
+    for _ in range(3):
+        fn()
+    best = math.inf
+    for _ in range(3):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        best = min(best, e0.elapsed_time(e1) / iters)
+    return best
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("variants", nargs="*", type=Path, help="copies of zband_conv_sm90.cu")
+    ap.add_argument("--sweep", action="store_true", help="time the built kernel over C")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("zband_sm90_variants: no CUDA device")
+    zc.build()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    fns = {src.stem: load_variant(src) for src in args.variants}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, c, n, fused, res in CHECKS:
+        hz, wz, ep = make(g, b, c, n, fused, res)
+        got = call_built(hz, wz, ep)
+        f32 = [None if t is None else t.float() for t in (ep or ())]
+        want = (zc.zband_conv_fused_ref(hz.float(), wz.float(), *f32, k=3, bs=8) if ep
+                else zc.zband_conv_ref(hz.float(), wz.float(), 3, 8))
+        err, top = float((got.float() - want).abs().max()), float(want.abs().max())
+        same = {name: bool(torch.equal(call_variant(fn, hz, wz, ep), got))
+                for name, fn in fns.items()}
+        print(f"check B={b} C={c} N={n} fused={fused} res={res}: max-abs error {err:.3e} "
+              f"(out max-abs {top:.3e}); bit-equal to the built kernel: {same}", flush=True)
+        if err > 2e-2 * top:
+            raise AssertionError("the built kernel disagrees with the plain version")
+    times = {}
+    for shape, (c, n, fused, res) in TIMED.items():
+        hz, wz, ep = make(g, 11264, c, n, fused, res)
+        t = {name: [time_ms(lambda: call_variant(fn, hz, wz, ep))] for name, fn in fns.items()}
+        t["built"] = [time_ms(lambda: call_built(hz, wz, ep)) for _ in range(2)]
+        for name, fn in fns.items():
+            t[name].append(time_ms(lambda: call_variant(fn, hz, wz, ep)))
+        times[shape] = t
+        print(f"{shape:15s} " + ", ".join(f"{name} {min(v):.3f} ms ({', '.join(f'{x:.3f}' for x in v)})"
+                                          for name, v in t.items()), flush=True)
+        del hz, wz, ep
+    if args.sweep:
+        times["sweep"] = {}
+        for c in (32, 64, 160, 320):
+            hz, wz, _ = make(g, 11264, c, 128, False, False)
+            times["sweep"][c] = time_ms(lambda: call_built(hz, wz, None))
+            print(f"sweep C={c:3d} ({c // zc.SM90_CK} chunks): built {times['sweep'][c]:.3f} ms",
+                  flush=True)
+    print(json.dumps({"card": card, "times": times}), flush=True)
+    return times
+
+
+if __name__ == "__main__":
+    main()

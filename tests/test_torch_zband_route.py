@@ -1,0 +1,192 @@
+"""The z-band kernels' route and the wgmma kernel's shared-memory plan, on
+the CPU.
+
+`zband_conv.route` picks, from a call's shape alone, the kernel a CUDA
+tensor runs: the wgmma kernel (sps_torch/csrc/zband_conv_sm90.cu) for the
+L0 block8 convs and the k = 3 microbenchmark, the WMMA kernel
+(zband_conv.cu) for everything else. The wgmma kernel reads its operands
+out of shared memory through descriptors; the `sm90_*` helpers carry the
+same formulas as the .cu, and the tests replay one stage's copies and
+descriptors on seeded numpy buffers: every A and B tile must come out as
+the exact slice of hz and wz it stands for."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sps_torch.ops import zband_conv as zc
+
+
+def _operands(b, k, bs, c, n, dtype=torch.bfloat16, fused=True, res=True):
+    h = bs + k - 1
+    hz = torch.zeros((b, h, h, c), dtype=dtype)
+    wz = torch.zeros((k, k, c, n), dtype=dtype)
+    if not fused:
+        return hz, wz, ()
+    occ = torch.zeros((b, bs, bs, n), dtype=dtype)
+    rest = (torch.ones(n), torch.zeros(n), occ, torch.zeros_like(occ) if res else None)
+    return hz, wz, rest
+
+
+# (b, k, bs, C, N, fused, res): the main path's calls and K3's.
+WGMMA_CALLS = {
+    "block8_0.conv1": (2, 3, 8, 320, 128, True, False),
+    "block8_0.conv2": (2, 3, 8, 160, 128, True, True),
+    "K3 TC 16": (2, 3, 8, 160, 128, False, False),
+    "K3 TC 32": (2, 3, 8, 320, 256, False, False),
+}
+# chip_smoke.py phase 2's small shapes: (k, bs, tcin, tcout, B).
+SMALL = [(3, 4, 2, 3, 8), (3, 8, 2, 2, 8), (5, 4, 1, 2, 8), (3, 4, 2, 2, 6), (3, 4, 2, 2, 4)]
+WMMA_CALLS = {
+    "stem k=5": (2, 5, 8, 24, 128, False, False),
+    "C % 32 != 0": (2, 3, 8, 168, 128, True, True),
+    "N = 64": (2, 3, 8, 160, 64, True, True),
+    **{f"small k={k} bs={bs} tcin={ti} tcout={to} B={b}": (b, k, bs, (bs + k - 1) * ti, bs * to,
+                                                           True, True)
+       for k, bs, ti, to, b in SMALL},
+}
+
+
+@pytest.mark.parametrize("call", sorted(WGMMA_CALLS))
+def test_route_takes_wgmma(call):
+    b, k, bs, c, n, fused, res = WGMMA_CALLS[call]
+    hz, wz, rest = _operands(b, k, bs, c, n, fused=fused, res=res)
+    assert zc.route(hz, wz, k, bs, *rest) == "wgmma"
+    # f32 operands of the same shape stay on the WMMA kernel.
+    hz32, wz32, rest32 = _operands(b, k, bs, c, n, torch.float32, fused, res)
+    assert zc.route(hz32, wz32, k, bs, *rest32) == "wmma"
+
+
+@pytest.mark.parametrize("call", sorted(WMMA_CALLS))
+def test_route_keeps_wmma(call):
+    b, k, bs, c, n, fused, res = WMMA_CALLS[call]
+    for dtype in (torch.bfloat16, torch.float32):
+        hz, wz, rest = _operands(b, k, bs, c, n, dtype, fused, res)
+        assert zc.route(hz, wz, k, bs, *rest) == "wmma"
+
+
+def test_route_needs_aligned_operands():
+    hz, wz, rest = _operands(2, 3, 8, 160, 128)
+    assert zc.route(hz, wz, 3, 8, *rest) == "wgmma"
+    # The same shape at an offset of one element (2 bytes) into a buffer.
+    shifted = torch.zeros(hz.numel() + 1, dtype=hz.dtype)[1:].view(hz.shape)
+    assert shifted.data_ptr() % 16 != 0
+    assert zc.route(shifted, wz, 3, 8, *rest) == "wmma"
+    occ = torch.zeros(rest[2].numel() + 1, dtype=hz.dtype)[1:].view(rest[2].shape)
+    assert zc.route(hz, wz, 3, 8, rest[0], rest[1], occ, rest[3]) == "wmma"
+
+
+def test_variants_script_needs_a_card():
+    from sps_torch.scripts import zband_sm90_variants as zv
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        zv.main([])
+    assert set(zv.TIMED) >= {"block8_0.conv1", "block8_0.conv2", "K3 TC16", "K3 TC32"}
+
+
+def test_reset_launches():
+    zc.LAUNCHES["zband_conv"] = 3
+    zc.ROUTE_LAUNCHES["zband_conv_fused"]["wgmma"] = 2
+    zc.reset_launches()
+    assert zc.LAUNCHES == {"zband_conv": 0, "zband_conv_fused": 0}
+    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0} for name in zc.LAUNCHES}
+
+
+def test_plan_matches_the_kernel_source():
+    """The helpers' tile constants are the .cu's."""
+    src = (zc.CSRC / "zband_conv_sm90.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["CK"]) == zc.SM90_CK
+    assert int(consts["BN"]) == zc.SM90_BN
+    assert int(consts["BRICKS"]) == zc.SM90_BRICKS
+    assert int(consts["NT"]) == zc.SM90_THREADS
+    assert int(consts["STAGES"]) == zc.SM90_STAGES
+    assert int(consts["C_MULTIPLE"]) == zc.SM90_C_MULTIPLE
+    assert f"SMEM_BYTES <= {zc.SMEM_LIMIT}" in src
+    assert zc.CSRC / "zband_conv_sm90.cu" in zc.SOURCES
+    assert Path(zc.CSRC / "zband_conv_op.cpp") == zc.OP_SOURCE
+
+
+def test_stage_budget():
+    plan = zc.sm90_smem_plan()
+    assert plan["a_sbo"] == 160 and plan["a_lbo"] == 1600  # h * 16, h * h * 16 bytes
+    assert plan["halo_bytes"] == zc.SM90_CK // 8 * 1600
+    assert plan["stage_bytes"] == (zc.SM90_BRICKS * plan["halo_bytes"]
+                                   + 9 * zc.SM90_CK * zc.SM90_BN * 2)
+    assert zc.SM90_STAGES * plan["stage_bytes"] <= zc.SMEM_LIMIT
+
+
+def _stage(hz, wz, b0, q, n0):
+    """One stage of shared memory, as elements of 2 bytes, after the
+    kernel's copies of chunk q for the block of bricks b0 .. b0+3 and
+    columns n0 .. n0+127; bricks past the batch are zero-filled."""
+    b, h, _, c = hz.shape
+    n = wz.shape[-1]
+    plan = zc.sm90_smem_plan(h)
+    smem = np.full(plan["stage_bytes"] // 2, np.nan, np.float32)
+    hz_flat, wz_flat = hz.reshape(-1), wz.reshape(-1)
+    c0 = q * zc.SM90_CK
+    for i in range(zc.SM90_BRICKS * zc.SM90_CK // 8 * h * h):
+        brick, src, dst = zc.sm90_halo_piece(i, c, c0, h)
+        assert dst % 16 == 0
+        ok = b0 + brick < b
+        smem[dst // 2 : dst // 2 + 8] = hz_flat[b0 * h * h * c + src :][:8] if ok else 0.0
+    sweeps = zc.SM90_CK * zc.SM90_BN // 8 // zc.SM90_THREADS
+    for tid in range(zc.SM90_THREADS):
+        for it in range(sweeps * 9):
+            src, dst = zc.sm90_weight_piece(tid, it, c, n, c0, n0)
+            assert dst % 16 == 0
+            smem[dst // 2 : dst // 2 + 8] = wz_flat[src : src + 8]
+    assert not np.isnan(smem).any(), "the copies leave no byte of the stage unwritten"
+    return smem
+
+
+def _tile(smem, start, lbo, sbo, rows, mn_major):
+    """Gather a wgmma operand through its descriptor: a K-major (rows x 16)
+    tile, or an MN-major (16 x rows) one; core matrices are 8 x 16 bytes."""
+    r, kk = np.meshgrid(np.arange(rows), np.arange(16), indexing="ij")
+    if mn_major:  # rows along N, 8 of them contiguous; k picks the 16-byte row
+        byte = start + (r // 8) * sbo + (r % 8) * 2 + (kk // 8) * lbo + (kk % 8) * 16
+    else:         # rows along M, 16 bytes apart; 8 channels contiguous
+        byte = start + (r // 8) * sbo + (r % 8) * 16 + (kk // 8) * lbo + (kk % 8) * 2
+    assert start % 16 == 0 and (byte % 2 == 0).all()
+    t = smem[byte // 2]
+    return t.T if mn_major else t
+
+
+@pytest.mark.parametrize("b,c,n", [(4, 160, 128), (3, 320, 256)])
+def test_descriptors_address_the_halo_and_weight(b, c, n):
+    rng = np.random.default_rng(c + n)
+    k, bs, h = 3, 8, 10
+    hz = rng.standard_normal((b, h, h, c)).astype(np.float32)
+    wz = rng.standard_normal((k, k, c, n)).astype(np.float32)
+    for q in (0, c // zc.SM90_CK - 1):
+        for n0 in range(0, n, zc.SM90_BN):
+            smem = _stage(hz, wz, 0, q, n0)
+            for brick in range(zc.SM90_BRICKS):
+                acc = np.zeros((bs * bs, zc.SM90_BN), np.float64)
+                for kx in range(k):
+                    for ky in range(k):
+                        for ks in range(zc.SM90_CK // 16):
+                            (sa, la, ma), (sb, lb, mb) = zc.sm90_descriptors(brick, kx, ky, ks)
+                            a = _tile(smem, sa, la, ma, bs * bs, mn_major=False)
+                            w = _tile(smem, sb, lb, mb, zc.SM90_BN, mn_major=True)
+                            c0 = q * zc.SM90_CK + 16 * ks
+                            want_w = wz[kx, ky, c0 : c0 + 16, n0 : n0 + zc.SM90_BN]
+                            np.testing.assert_array_equal(w, want_w)
+                            if brick < b:
+                                want_a = hz[brick, kx : kx + bs, ky : ky + bs, c0 : c0 + 16]
+                                np.testing.assert_array_equal(a, want_a.reshape(bs * bs, 16))
+                            else:
+                                assert not a.any()  # a missing brick is zeros
+                            acc += a.astype(np.float64) @ w
+                # The stage's 9 taps x k-steps sum to the chunk's share of the conv.
+                if brick < b:
+                    cs = slice(q * zc.SM90_CK, (q + 1) * zc.SM90_CK)
+                    want = sum(hz[brick, kx : kx + bs, ky : ky + bs, cs].reshape(bs * bs, -1)
+                               .astype(np.float64) @ wz[kx, ky, cs, n0 : n0 + zc.SM90_BN]
+                               for kx in range(k) for ky in range(k))
+                    np.testing.assert_allclose(acc, want, rtol=1e-12, atol=1e-12)
