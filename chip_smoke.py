@@ -11,12 +11,15 @@ Phases, each of which raises (and exits non-zero) on failure:
   2. kernels - hold each kernel against its plain PyTorch version on the
               card, at small shapes, at ragged shapes of the wgmma route
               (zband_conv_sm90.cu: B 1, 3, 5; TCin 16, 32; N 128, 256; with
-              and without residual and relu) and at the main path's
-              full-width shapes, in f32 (TF32 off; rtol/atol 1e-4) and bf16
-              (max error within 2e-2 of the output's max-abs); print each
-              call's route; time the kernel, the WMMA kernel on the same
-              operands where the call takes the wgmma route, the plain
-              version and F.conv2d (CUDA events, median of 20);
+              and without residual and relu), at ragged shapes of the
+              wgmma_k5 route (zband_conv_k5_sm90.cu: B 1, 3, 5; the stem's
+              band-packed weight and random non-band weights; C 24, 16, 8;
+              N 128, 256) and at the main path's full-width shapes, in f32
+              (TF32 off; rtol/atol 1e-4) and bf16 (max error within 2e-2 of
+              the output's max-abs); print each call's route; time the
+              kernel, the WMMA kernel on the same operands where the call
+              takes a wgmma route (also at K3's shape), the plain version
+              and F.conv2d (CUDA events, median of 20);
   3. parity - the port's streaming filter on the card against the same
               filter on the CPU (the path the CPU tests hold against
               sps_tpu), f32, small config, full MinkUNet14 width;
@@ -25,7 +28,7 @@ Phases, each of which raises (and exits non-zero) on failure:
               width, full capacities, bf16, TOPO_EVERY 8), seeded random
               weights, 10 BLT-scale synthetic scans at 0.2 m steps; checks
               overflow, scores and launch counts per route (both block8
-              convs on wgmma, the k = 5 stem on wmma), prints latencies;
+              convs on wgmma, the k = 5 stem on wgmma_k5), prints latencies;
   5. microbench - K3's path: sps_torch/scripts/microbench_zband.py at
               B = 11264, bs = 8, TC = 16, bf16 then f32 (TF32 off): every
               L0 conv variant timed and held against the halo variant, the
@@ -60,11 +63,13 @@ REPLACES = {
     "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
     "microbench_zmm": "scripts/microbench_pallas.py::make_pallas_conv (_zmm_kernel :85-119)",
 }
-SOURCES = {  # the source of each kernel's calls on the main path
-    "zband_conv": "sps_torch/csrc/zband_conv.cu",
-    "zband_conv_fused": "sps_torch/csrc/zband_conv_sm90.cu",
-    "microbench_zmm": "sps_torch/csrc/zband_conv_sm90.cu",
-}
+
+
+def route_source(route) -> str:
+    """The repo path of the source a route runs."""
+    from sps_torch.ops import zband_conv as zc
+
+    return os.path.relpath(zc.ROUTE_SOURCES[route], HERE)
 
 
 def log(msg):
@@ -121,6 +126,17 @@ def make_case(k, bs, tcin, tcout, b, dtype, seed, with_res=True):
     )
 
 
+def make_general(b, c, n, seed):
+    """Seeded stem-shaped operands (k = 5, bs = 8, h = 12) with any C and
+    a random weight that is not band-packed, bf16."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    hz = torch.rand((b, 12, 12, c), generator=g, device="cuda")
+    wz = torch.randn((5, 5, c, n), generator=g, device="cuda") * (2.0 / (25 * c)) ** 0.5
+    return dict(hz=hz.bfloat16(), wz=wz.bfloat16(), k=5, bs=8)
+
+
 def run_kernel(name, c, relu=True):
     from sps_torch.ops import zband_conv as zc
 
@@ -132,7 +148,7 @@ def run_kernel(name, c, relu=True):
 
 def run_wmma(name, c, relu=True):
     """The WMMA kernel (zband_conv.cu) on the same operands, through the
-    op with its route given: the yardstick of the wgmma route's calls."""
+    op with its route given: the yardstick of the wgmma routes' calls."""
     import torch
 
     from sps_torch.ops import zband_conv as zc
@@ -241,6 +257,21 @@ def phase_kernels(card):
         errs["zband_conv_fused"] = max(errs["zband_conv_fused"], check(
             "zband_conv_fused", c, relu, tag + f" res={wres} relu={relu}", "wgmma"))
 
+    # The wgmma_k5 route at ragged B (not a multiple of its 4 bricks per
+    # block): the stem's band-packed weight (C = 24) and random non-band
+    # weights, which hold the general function, at every C its rule takes
+    # and one and two 128-column tiles, bf16.
+    stem_ragged = [  # (B, C, N, band-packed)
+        (1, 24, 128, True), (3, 24, 256, True), (5, 24, 128, False),
+        (3, 24, 256, False), (5, 16, 128, False), (1, 8, 128, False),
+    ]
+    for i, (b, cin, n, band) in enumerate(stem_ragged):
+        c = (make_case(5, 8, cin // 12, n // 8, b, torch.bfloat16, seed=70 + i) if band
+             else make_general(b, cin, n, seed=70 + i))
+        tag = f"stem ragged B={b} C={cin} N={n} {'band' if band else 'random'} wz bfloat16"
+        errs["zband_conv"] = max(errs["zband_conv"], check("zband_conv", c, True, tag,
+                                                           "wgmma_k5"))
+
     # The main path's L0 shapes at B = 11264 bricks (config.yaml, batch 1):
     # the k=5 stem, block8_0.conv1 (no residual) and conv2 (with residual).
     full = [
@@ -250,7 +281,7 @@ def phase_kernels(card):
     ]
     per_call = []
     for i, (name, where, k, tcin, tcout, wres) in enumerate(full):
-        route = "wgmma" if k == 3 else "wmma"
+        route = "wgmma" if k == 3 else "wgmma_k5"
         for dtype in (torch.float32, torch.bfloat16):
             c = make_case(k, 8, tcin, tcout, 11264, dtype, seed=100 + i, with_res=wres)
             tag = f"full {where} hz{tuple(c['hz'].shape)} {str(dtype)[6:]}"
@@ -262,13 +293,14 @@ def phase_kernels(card):
         x_nchw = c["hz"].permute(0, 3, 1, 2)
         w_oihw = c["wz"].permute(3, 2, 0, 1)
         ms = time_ms(lambda: run_kernel(name, c))
-        wmma_ms = time_ms(lambda: run_wmma(name, c)) if route == "wgmma" else ms
+        wmma_ms = time_ms(lambda: run_wmma(name, c)) if route != "wmma" else ms
         plain_ms = time_ms(lambda: run_plain(name, c))
         library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
         flops, nbytes = work(c, name == "zband_conv_fused")
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
         bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-        per_call.append(dict(name=name, call=where, route=route, ms=ms, wmma_ms=wmma_ms,
+        per_call.append(dict(name=name, call=where, route=route, source=route_source(route),
+                             ms=ms, wmma_ms=wmma_ms,
                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                              bound_by=bound_by, gflop=flops / 1e9, gbytes=nbytes / 1e9))
         log(f"  time {name:17s} {where:15s} bf16 [{card}]: kernel ({route}) {ms:.3f} ms "
@@ -278,7 +310,16 @@ def phase_kernels(card):
             f"{nbytes / 1e9:.3f} GB)")
         del c, x_nchw, w_oihw
         torch.cuda.empty_cache()
-    return errs, per_call
+    # K3's shape (k = 3, TC 16, unfused) beside the WMMA kernel in this call.
+    c = make_case(3, 8, 16, 16, 11264, torch.bfloat16, seed=110, with_res=False)
+    k3 = dict(ms=time_ms(lambda: run_kernel("zband_conv", c)),
+              wmma_ms=time_ms(lambda: run_wmma("zband_conv", c)))
+    log(f"  time zband_conv       K3 shape        bf16 [{card}]: kernel (wgmma) "
+        f"{k3['ms']:.3f} ms, wmma kernel {k3['wmma_ms']:.3f} ms "
+        f"({k3['wmma_ms'] / k3['ms']:.2f}x)")
+    del c
+    torch.cuda.empty_cache()
+    return errs, per_call, k3
 
 
 def blt_scale_scans(n_scans, ns, traj_step=0.2, extent=50.0):
@@ -410,8 +451,8 @@ def phase_path(card):
     p50 = statistics.median(lat)
     log(f"  per-scan latency ms {[round(x, 2) for x in lat]}; p50 {p50:.2f} ms; "
         f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    want = {"zband_conv": {"wmma": n_scans, "wgmma": 0},
-            "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans}}
+    want = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
+            "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans, "wgmma_k5": 0}}
     log(f"  kernel launches on the path: {launches}, per route {routes} (expected {want})")
     for key, per_route in want.items():
         if routes[key] != per_route or launches[key] != sum(per_route.values()):
@@ -521,16 +562,16 @@ def main() -> int:
     log(f"  built/loaded {', '.join(os.path.relpath(p, HERE) for p in zc.SOURCES)} "
         f"in {time.time() - t0:.1f} s")
     for line in zc.build_log.splitlines():
-        entry = re.search(r"entry function '\S*?\d(zband_\w*?kernel)I(\w*?)EEvNS", line)
+        entry = re.search(r"entry function '\S*?\d(zband_\w*?kernel)(?:I(\w*?)E)?", line)
         if entry:
-            log(f"  ptxas: {entry.group(1)}<{entry.group(2)}>")
+            log(f"  ptxas: {entry.group(1)}" + (f"<{entry.group(2)}>" if entry.group(2) else ""))
         elif "registers" in line or "spill" in line or "(C75" in line:
             # C75xx: ptxas serialized wgmma or injected waits (a slow kernel)
             log(f"  ptxas:   {line.strip()}")
     card = card_line()
     log(f"  card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    errs, per_call = phase_kernels(card)
+    errs, per_call, k3_same_call = phase_kernels(card)
     phase_parity()
     launches, filt, data = phase_path(card)
     if "--profile" in sys.argv[1:]:
@@ -543,12 +584,13 @@ def main() -> int:
         total = {key: sum(c[key] for c in calls)
                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": calls[0]["source"],
+            "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": calls[0]["bound_by"],
             "library_ms": total["library_ms"],
-            "calls": [{k: c[k] for k in ("call", "route", "ms", "wmma_ms", "plain_ms",
+            "calls": [{k: c[k] for k in ("call", "route", "source", "ms", "wmma_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by", "gflop",
                                          "gbytes")}
                       for c in calls],
@@ -558,12 +600,14 @@ def main() -> int:
              "library_ms": k3["variants"]["conv2d"]["ms"], "bound_ms": k3["bound_ms"],
              "bound_by": k3["bound_by"]}
     kernels.append({
-        "name": "microbench_zmm", "route": "cuda", "source": SOURCES["microbench_zmm"],
+        "name": "microbench_zmm", "route": "cuda", "source": route_source(k3["route"]),
         "replaces": REPLACES["microbench_zmm"], "launches": k3["launches"],
         "max_abs_err": kc["max_abs_err"], **times,
         "calls": [{"call": f"microbench kernel-conv k=3 hz{tuple(k3['hz'])} "
                            f"wz{tuple(k3['wz'])} {k3['dtype']}", "route": k3["route"],
-                   **times, "gflop": k3["gflop_band"], "gbytes": k3["gbytes"]}],
+                   "source": route_source(k3["route"]), **times,
+                   "gflop": k3["gflop_band"], "gbytes": k3["gbytes"],
+                   "phase2_ms": k3_same_call["ms"], "phase2_wmma_ms": k3_same_call["wmma_ms"]}],
     })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

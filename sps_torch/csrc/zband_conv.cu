@@ -30,17 +30,19 @@
 // main path). The epilogue goes through a per-warp shared scratch tile so
 // that it reads and writes global memory in row order.
 //
-// Which calls it serves: those that sps_torch/ops/zband_conv.route does not
-// send to the wgmma kernel (zband_conv_sm90.cu, bf16 at k = 3, bs = 8,
-// C % 32 == 0, N % 128 == 0): on the main path the k = 5 stem (hz
-// (11264, 12, 12, 24), wz (5, 5, 24, 128), once per scan); besides it every
-// f32 call and every small or ragged-width shape of the tests.
+// Which calls it serves: those that sps_torch/ops/zband_conv.route sends to
+// neither wgmma kernel (zband_conv_sm90.cu: bf16 at k = 3, bs = 8,
+// C % 32 == 0, N % 128 == 0; zband_conv_k5_sm90.cu: the unfused bf16 stem,
+// k = 5, bs = 8, C % 8 == 0 with C <= 24): every f32 call, the C = 48 stem
+// of DIST_FEATURE, and every small or ragged-width shape of the tests.
+// It is also the yardstick that chip_smoke.py times beside both wgmma
+// kernels on the same operands.
 //
-// What bounds it on this card: the stem's 110.7 GFLOP against 0.263 GB
-// moved is bound by the tensor cores (0.112 ms). This version uses WMMA
-// rather than wgmma/TMA and computes the band's zeros, so it stays well
-// below that bound; the stem's own wgmma design is later work (25 taps of
-// weight do not fit one shared-memory stage as k = 3's 9 do).
+// What bounds it on this card: at the stem's shape (hz (11264, 12, 12, 24),
+// wz (5, 5, 24, 128)) 110.7 GFLOP against 0.263 GB moved, i.e. the tensor
+// cores (0.112 ms). This version uses WMMA rather than wgmma, re-reads the
+// halo once per tap and computes the band's zeros, so it stays well below
+// that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,6 +1,8 @@
-// PyTorch binding of the z-band kernels in zband_conv.cu (route 0, WMMA) and
-// zband_conv_sm90.cu (route 1, wgmma): registers torch.ops.sps_torch.zband_conv
-// and torch.ops.sps_torch.zband_conv_fused for CUDA tensors. The kernel files
+// PyTorch binding of the z-band kernels in zband_conv.cu (route 0, WMMA),
+// zband_conv_sm90.cu (route 1, wgmma at k = 3) and zband_conv_k5_sm90.cu
+// (route 2, wgmma at the k = 5 stem, unfused only): registers
+// torch.ops.sps_torch.zband_conv and torch.ops.sps_torch.zband_conv_fused
+// for CUDA tensors. The kernel files
 // have plain C entry points and no PyTorch headers; this file includes only
 // the operator registry and one ATen operator, so all build in seconds
 // (sps_torch/ops/zband_conv.py).
@@ -22,6 +24,8 @@ extern "C" int sps_zband_conv_sm90(int fused, const void* hz, const void* wz, co
                                    const float* bias, const void* occ, const void* res, void* out,
                                    long long batch, int k, int bs, int C, int N, int relu,
                                    void* stream);
+extern "C" int sps_zband_conv_k5_sm90(const void* hz, const void* wz, void* out, long long batch,
+                                      int k, int bs, int C, int N, void* stream);
 
 namespace {
 
@@ -33,7 +37,7 @@ void check_operand(const at::Tensor& t, const at::Tensor& hz, const char* name) 
 at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* scale,
                   const at::Tensor* bias, const at::Tensor* occ, const at::Tensor* res,
                   int64_t k, int64_t bs, bool relu, int64_t route, int64_t stream) {
-  TORCH_CHECK(route == 0 || route == 1, "route must be 0 (wmma) or 1 (wgmma)");
+  TORCH_CHECK(route >= 0 && route <= 2, "route must be 0 (wmma), 1 (wgmma) or 2 (wgmma_k5)");
   TORCH_CHECK(hz.is_cuda(), "zband kernels take CUDA tensors");
   const bool bf16 = hz.scalar_type() == at::kBFloat16;
   TORCH_CHECK(bf16 || hz.scalar_type() == at::kFloat, "hz must be float32 or bfloat16");
@@ -77,6 +81,14 @@ at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* 
                               reinterpret_cast<void*>(stream));
     TORCH_CHECK(err != -1, "route wgmma does not take this call: it needs k = 3, bs = 8, ",
                 "C % 32 == 0, N % 128 == 0 and 16-byte aligned operands");
+  } else if (route == 2) {
+    TORCH_CHECK(bf16, "route wgmma_k5 takes bfloat16 only");
+    TORCH_CHECK(!fused, "route wgmma_k5 takes the unfused conv only");
+    err = sps_zband_conv_k5_sm90(hz.data_ptr(), wz.data_ptr(), out.data_ptr(), b,
+                                 static_cast<int>(k), static_cast<int>(bs), static_cast<int>(c),
+                                 static_cast<int>(n), reinterpret_cast<void*>(stream));
+    TORCH_CHECK(err != -1, "route wgmma_k5 does not take this call: it needs k = 5, bs = 8, ",
+                "C % 8 == 0 with C <= 24, N % 128 == 0 and 16-byte aligned operands");
   } else {
     err = sps_zband_conv(bf16 ? 1 : 0, fused ? 1 : 0, hz.data_ptr(), wz.data_ptr(), sc, bi, oc,
                          rs, out.data_ptr(), b, static_cast<int>(k), static_cast<int>(bs),

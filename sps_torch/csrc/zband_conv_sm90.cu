@@ -1,7 +1,9 @@
 // z-band brick convolution on Hopper's warpgroup tensor cores (sm_90a,
 // wgmma). Plain C entry point sps_zband_conv_sm90 (below); zband_conv_op.cpp
-// binds it to PyTorch and sps_torch/ops/zband_conv.py routes a call here when
-// its shape qualifies (zband_conv.route), else to zband_conv.cu.
+// binds it to PyTorch and sps_torch/ops/zband_conv.py routes a k = 3 call
+// here when its shape qualifies (zband_conv.route); the k = 5 stem goes to
+// zband_conv_k5_sm90.cu, every other call to zband_conv.cu. The device
+// helpers (copies, descriptors, wgmma) are in sm90_wgmma.cuh.
 //
 // Replaces, at the shapes it takes, the Pallas TPU kernels of
 // sps_tpu/ops/pallas_conv.py:
@@ -62,6 +64,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "sm90_wgmma.cuh"
+
 namespace {
 
 constexpr int KS = 3;             // taps per side
@@ -102,56 +106,6 @@ struct Params {
   int C, N;
   int relu;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared async copy; pred false zero-fills the 16 bytes.
-__device__ __forceinline__ void cp_async16(uint32_t s, const void* g, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(g),
-               "r"(pred ? 16 : 0));
-}
-
-// wgmma shared-memory matrix descriptor, no swizzle: start address, leading
-// (K) and stride (M or N) byte offsets between core matrices, all >> 4.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-// d += A (64 x 16, K-major) * B (16 x 128, MN-major: transpose-B set).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Keep the compiler from moving accumulator accesses across wgmma's async window.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // Stage chunk q (channels q*CK ..) of the block's 4 halos and of the 9
 // weight taps into stage buffer s.
@@ -351,8 +305,6 @@ int launch(const Params& p, cudaStream_t stream) {
   zband_sm90_kernel<FUSED><<<grid, NT, SMEM_BYTES, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
 
 }  // namespace
 

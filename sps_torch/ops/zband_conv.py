@@ -16,9 +16,12 @@ sps_torch/csrc/zband_conv_op.cpp registers (torch.ops.sps_torch.*). The
 call's shape picks the kernel (`route`): "wgmma" runs
 sps_torch/csrc/zband_conv_sm90.cu (bf16, k = 3, bs = 8, C % 32 == 0,
 N % 128 == 0, 16-byte aligned: both block8 convs of L0 and the k = 3
-microbenchmark), "wmma" runs sps_torch/csrc/zband_conv.cu (every other
-shape: the k = 5 stem, f32, small shapes). No flag picks a route, and a
-route that does not take a shape raises. The library is built at first
+microbenchmark), "wgmma_k5" runs sps_torch/csrc/zband_conv_k5_sm90.cu
+(the unfused conv in bf16 at k = 5, bs = 8, C % 8 == 0 with C <= 24,
+N % 128 == 0, 16-byte aligned: the stem), "wmma" runs
+sps_torch/csrc/zband_conv.cu (every other shape: f32, small shapes, the
+C = 48 stem of DIST_FEATURE). No flag picks a route, and a route that
+does not take a shape raises. The library is built at first
 use into build/torch_ext/ (one nvcc per CUDA source for sm_90a and the
 host compiler, all started together, then one link) and rebuilt when a
 source changes. A build or launch failure raises. On a CPU tensor they
@@ -37,14 +40,19 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-CUDA_SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_sm90.cu")
+CUDA_SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_sm90.cu",
+                CSRC / "zband_conv_k5_sm90.cu")
 OP_SOURCE = CSRC / "zband_conv_op.cpp"
 SOURCES = (*CUDA_SOURCES, OP_SOURCE)
+HEADERS = (CSRC / "sm90_wgmma.cuh",)  # included by both wgmma sources
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 
 # Route name -> the op's route argument: 0 runs zband_conv.cu (WMMA), 1
-# zband_conv_sm90.cu (wgmma).
-ROUTES = {"wmma": 0, "wgmma": 1}
+# zband_conv_sm90.cu (wgmma, k = 3), 2 zband_conv_k5_sm90.cu (wgmma, the
+# k = 5 stem).
+ROUTES = {"wmma": 0, "wgmma": 1, "wgmma_k5": 2}
+ROUTE_SOURCES = {"wmma": CUDA_SOURCES[0], "wgmma": CUDA_SOURCES[1],
+                 "wgmma_k5": CUDA_SOURCES[2]}
 
 # One count per kernel launch; incremented only where the kernel launches,
 # in total and per route.
@@ -57,6 +65,11 @@ ROUTE_LAUNCHES = {name: dict.fromkeys(ROUTES, 0) for name in LAUNCHES}
 SM90_CK, SM90_BN, SM90_BRICKS, SM90_THREADS, SM90_STAGES = 16, 128, 4, 256, 4
 SM90_C_MULTIPLE = 32
 SMEM_LIMIT = 232448
+
+# The wgmma_k5 route's tile (zband_conv_k5_sm90.cu): taps per side, brick
+# side, 8-channel groups staged per tap (C <= 8 * K5_GROUPS), group slots
+# of a halo (two k16 steps), columns per block, bricks per block, threads.
+K5_KS, K5_BS, K5_GROUPS, K5_A_GROUPS, K5_BN, K5_BRICKS, K5_THREADS = 5, 8, 3, 4, 128, 6, 384
 
 _loaded = False
 build_log = ""
@@ -93,7 +106,7 @@ def build() -> None:
     from torch.utils import cpp_extension
 
     h = hashlib.sha256(torch.__version__.encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     digest = h.hexdigest()[:16]
     so = BUILD_DIR / f"zband_conv_{digest}.so"
@@ -132,14 +145,20 @@ def reset_launches() -> None:
 
 
 def route(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int, *operands) -> str:
-    """The kernel a CUDA call runs, from its shape alone: "wgmma"
-    (zband_conv_sm90.cu) for bf16 at k = 3 and bs * bs = 64 with C % 32 == 0,
-    N % 128 == 0 and every operand (hz, wz and the fused call's scale, bias,
-    occ, res) 16-byte aligned; else "wmma" (zband_conv.cu)."""
-    ok = (hz.dtype == torch.bfloat16 and k == 3 and bs * bs == 64
-          and hz.shape[-1] % SM90_C_MULTIPLE == 0 and wz.shape[-1] % SM90_BN == 0
+    """The kernel a CUDA call runs, from its shape alone. With bf16,
+    bs * bs = 64, N % 128 == 0 and every operand (hz, wz and the fused
+    call's scale, bias, occ, res) 16-byte aligned: "wgmma"
+    (zband_conv_sm90.cu) at k = 3 with C % 32 == 0; "wgmma_k5"
+    (zband_conv_k5_sm90.cu) for the unfused call (no operands) at k = 5
+    with C % 8 == 0 and 0 < C <= 24. Else "wmma" (zband_conv.cu)."""
+    c = hz.shape[-1]
+    ok = (hz.dtype == torch.bfloat16 and bs * bs == 64 and wz.shape[-1] % SM90_BN == 0
           and all(t.data_ptr() % 16 == 0 for t in (hz, wz, *operands) if t is not None))
-    return "wgmma" if ok else "wmma"
+    if ok and k == 3 and c % SM90_C_MULTIPLE == 0:
+        return "wgmma"
+    if ok and k == K5_KS and not operands and c % 8 == 0 and 0 < c <= 8 * K5_GROUPS:
+        return "wgmma_k5"
+    return "wmma"
 
 
 def sm90_smem_plan(h: int = 10, taps: int = 9) -> dict[str, int]:
@@ -193,6 +212,77 @@ def sm90_weight_piece(tid: int, it: int, c: int, n: int, c0: int, n0: int):
     p = sm90_smem_plan()
     return ((tap * c + c0 + (kg + 2 * sweep) * 8 + r) * n + n0 + j * 8,
             p["w_offset"] + tid * 16 + tap * p["w_tap_bytes"] + sweep * SM90_THREADS * 16)
+
+
+def k5_smem_plan() -> dict[str, int]:
+    """The wgmma_k5 route's shared memory, in bytes, with the formulas of
+    zband_conv_k5_sm90.cu: each brick's whole halo as K-major core matrices
+    [group slot][pixel][8 channels] (a_sbo: next 8 output rows, i.e. the
+    next xo; a_lbo: next 8 channels; 4 slots, those at and past C/8
+    zeroed), then all 25 taps' weights as MN-major core matrices
+    [8-channel group][8-column group][8][8] (b_sbo: next 8 columns; b_lbo:
+    next 8 channels; 3 groups a tap), then the zeroed group of weight rows
+    that faces slot 3."""
+    h = K5_BS + K5_KS - 1
+    a_lbo, b_sbo = h * h * 16, 8 * 16
+    b_lbo = K5_BN // 8 * b_sbo
+    halo = K5_A_GROUPS * a_lbo
+    w_tap = K5_GROUPS * b_lbo
+    w_offset = K5_BRICKS * halo
+    pad = w_offset + K5_KS * K5_KS * w_tap
+    return dict(a_sbo=h * 16, a_lbo=a_lbo, halo_bytes=halo, b_sbo=b_sbo, b_lbo=b_lbo,
+                w_tap_bytes=w_tap, w_offset=w_offset, pad_offset=pad, smem_bytes=pad + b_lbo)
+
+
+def k5_descriptors(brick: int, kx: int, ky: int, ks: int):
+    """(start, lbo, sbo) in bytes from the buffer's base of the A and B
+    operands of one wgmma of the wgmma_k5 route: the block's brick
+    `brick`, tap (kx, ky), k-step ks (group slots 2*ks and 2*ks + 1). The
+    B operand of k-step 1 reaches its second group, the rows facing the
+    halo's zero slot 3, through its lbo: the zeroed pad."""
+    p = k5_smem_plan()
+    h = K5_BS + K5_KS - 1
+    a = (brick * p["halo_bytes"] + ks * 2 * p["a_lbo"] + (kx * h + ky) * 16,
+         p["a_lbo"], p["a_sbo"])
+    w_tap = p["w_offset"] + (kx * K5_KS + ky) * p["w_tap_bytes"]
+    lbo = p["b_lbo"] if ks == 0 else p["pad_offset"] - (w_tap + 2 * p["b_lbo"])
+    return a, (w_tap + ks * 2 * p["b_lbo"], lbo, p["b_sbo"])
+
+
+def k5_halo_piece(i: int, c: int):
+    """(brick, element offset into hz from the block's first brick, byte
+    offset from the buffer's base) of the halo's 16-byte copy i
+    (zband_conv_k5_sm90.cu::load_halos): channel group i % (C/8) of pixel
+    i / (C/8) of the brick."""
+    cg, h = c // 8, K5_BS + K5_KS - 1
+    brick, rest = divmod(i, h * h * cg)
+    pix, g = divmod(rest, cg)
+    p = k5_smem_plan()
+    return brick, brick * h * h * c + rest * 8, brick * p["halo_bytes"] + g * p["a_lbo"] + pix * 16
+
+
+def k5_weight_piece(e: int, kx: int, c: int, n: int, n0: int):
+    """(element offset into wz, byte offset from the buffer's base) of the
+    16-byte copy e of row kx of taps (zband_conv_k5_sm90.cu::load_weight_row)."""
+    ky, rest = divmod(e, c // 8 * K5_BN)
+    kg, j, r = rest >> 7, (rest >> 3) & 15, rest & 7
+    tap = kx * K5_KS + ky
+    p = k5_smem_plan()
+    return ((tap * c + kg * 8 + r) * n + n0 + j * 8,
+            p["w_offset"] + tap * p["w_tap_bytes"] + rest * 16)
+
+
+def k5_zero_ranges(c: int) -> list[tuple[int, int]]:
+    """The byte ranges zband_conv_k5_sm90.cu::zero_slots zeroes: each
+    halo's slots from C/8 on, each tap's weight groups from C/8 on (none
+    at C = 24) and the pad."""
+    cg, p = c // 8, k5_smem_plan()
+    halos = [(b * p["halo_bytes"] + cg * p["a_lbo"], (b + 1) * p["halo_bytes"])
+             for b in range(K5_BRICKS)]
+    taps = [(p["w_offset"] + t * p["w_tap_bytes"] + cg * p["b_lbo"],
+             p["w_offset"] + (t + 1) * p["w_tap_bytes"])
+            for t in range(K5_KS * K5_KS) if cg < K5_GROUPS]
+    return [*halos, *taps, (p["pad_offset"], p["smem_bytes"])]
 
 
 def _launch(name: str, path: str, hz: torch.Tensor, *args):

@@ -1,12 +1,15 @@
-"""Time variants of the wgmma z-band kernel beside the built one, on the card.
+"""Time variants of a wgmma z-band kernel beside the built one, on the card.
 
     python3 -m sps_torch.scripts.zband_sm90_variants [VARIANT.cu ...] [--sweep]
+    python3 -m sps_torch.scripts.zband_sm90_variants --k5 [VARIANT.cu ...]
 
 Each VARIANT.cu is a version of sps_torch/csrc/zband_conv_sm90.cu (an
 earlier revision, or a trial copy) with the same plain C entry point
-sps_zband_conv_sm90. Each is compiled by nvcc for sm_90a into a shared
-library under build/torch_ext/variants/ and called through ctypes beside
-the built kernel (the wgmma route of sps_torch.ops.zband_conv).
+sps_zband_conv_sm90; with --k5, of zband_conv_k5_sm90.cu with its entry
+point sps_zband_conv_k5_sm90. Each is compiled by nvcc for sm_90a (with
+sps_torch/csrc on the include path) into a shared library under
+build/torch_ext/variants/ and called through ctypes beside the built
+kernel (the wgmma or wgmma_k5 route of sps_torch.ops.zband_conv).
 
 First every kernel is held against the plain version (within 2e-2 of the
 output's max-abs, bf16 against f32) at ragged and full shapes, and each
@@ -17,8 +20,11 @@ residual) and K3 at TC 32 (C = 320, N = 256). A time is the least of 3
 runs of 20 back-to-back calls (CUDA events), taken in the order
 variants, built, built, variants. --sweep also times the built kernel
 unfused over C = 32, 64, 160, 320, which splits its time into a fixed
-part and a part per 16-channel chunk. Prints one line per shape and a
-JSON line of all times.
+part and a part per 16-channel chunk. With --k5 the shapes are the
+stem's (k = 5, h = 12): checks at ragged B, C 8/16/24 and N 128/256 with
+random weights, then the stem (B = 11264, C = 24, N = 128) and its
+N = 256 form timed. Prints one line per shape and a JSON line of all
+times.
 """
 
 from __future__ import annotations
@@ -44,43 +50,61 @@ TIMED = {  # name: (C, N, fused, res) at B = 11264
     "C320 unfused": (320, 128, False, False), "block8_0.conv1": (320, 128, True, False),
     "block8_0.conv2": (160, 128, True, True), "K3 TC32": (320, 256, False, False),
 }
+# --k5: the stem's kernel, unfused only.
+CHECKS_K5 = [(1, 24, 128, False, False), (3, 16, 256, False, False), (5, 8, 128, False, False),
+             (535, 24, 256, False, False), (11264, 24, 128, False, False)]
+TIMED_K5 = {"stem": (24, 128, False, False), "stem N=256": (24, 256, False, False)}
 
 
-def load_variant(src: Path):
+def load_variant(src: Path, k: int = 3):
     """Compile one variant and return its C entry point."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     so = VARIANT_DIR / f"{src.stem}.so"
     subprocess.run([zc._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-Xcompiler", "-fPIC", "-shared", str(src), "-o", str(so)], check=True)
-    fn = ctypes.CDLL(str(so)).sps_zband_conv_sm90
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                    "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{zc.CSRC}", "-shared", str(src),
+                    "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    if k == 5:
+        fn = lib.sps_zband_conv_k5_sm90
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+    else:
+        fn = lib.sps_zband_conv_sm90
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def call_variant(fn, hz, wz, ep):
-    b, c, n = hz.shape[0], hz.shape[-1], wz.shape[-1]
+    b, k, c, n = hz.shape[0], wz.shape[0], hz.shape[-1], wz.shape[-1]
     out = torch.empty((b, 8, 8, n), dtype=hz.dtype, device=hz.device)
-    ptrs = [None if t is None else t.data_ptr() for t in (ep or (None,) * 4)]
-    err = fn(int(ep is not None), hz.data_ptr(), wz.data_ptr(), *ptrs, out.data_ptr(), b, 3, 8,
-             c, n, 1, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if k == 5:
+        err = fn(hz.data_ptr(), wz.data_ptr(), out.data_ptr(), b, 5, 8, c, n, stream)
+    else:
+        ptrs = [None if t is None else t.data_ptr() for t in (ep or (None,) * 4)]
+        err = fn(int(ep is not None), hz.data_ptr(), wz.data_ptr(), *ptrs, out.data_ptr(), b, 3,
+                 8, c, n, 1, stream)
     if err != 0:
         raise RuntimeError(f"variant launch failed: {err}")
     return out
 
 
 def call_built(hz, wz, ep):
+    k = wz.shape[0]
     if ep is None:
-        return zc.zband_conv(hz, wz, 3, 8)
-    return zc.zband_conv_fused(hz, wz, *ep, k=3, bs=8)
+        return zc.zband_conv(hz, wz, k, 8)
+    return zc.zband_conv_fused(hz, wz, *ep, k=k, bs=8)
 
 
-def make(g, b, c, n, fused, res):
-    """Seeded bf16 operands, as chip_smoke.py's make_case draws them."""
-    hz = torch.rand((b, 10, 10, c), generator=g, device="cuda").bfloat16()
-    wz = (torch.randn((3, 3, c, n), generator=g, device="cuda")
-          * (2.0 / (27 * c / 10)) ** 0.5).bfloat16()
+def make(g, b, c, n, fused, res, k=3):
+    """Seeded bf16 operands, as chip_smoke.py's make_case draws them (at
+    k = 5 with a random weight that is not band-packed)."""
+    h = 8 + k - 1
+    hz = torch.rand((b, h, h, c), generator=g, device="cuda").bfloat16()
+    wz = (torch.randn((k, k, c, n), generator=g, device="cuda")
+          * (2.0 / (k * k * c * k / h)) ** 0.5).bfloat16()
     if not fused:
         return hz, wz, None
     occ = (torch.rand((b, 8, 8, n), generator=g, device="cuda") < 0.5).bfloat16()
@@ -106,23 +130,27 @@ def time_ms(fn, iters=20) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("variants", nargs="*", type=Path, help="copies of zband_conv_sm90.cu")
+    ap.add_argument("variants", nargs="*", type=Path,
+                    help="copies of zband_conv_sm90.cu (zband_conv_k5_sm90.cu with --k5)")
     ap.add_argument("--sweep", action="store_true", help="time the built kernel over C")
+    ap.add_argument("--k5", action="store_true", help="the k = 5 stem kernel's variants")
     args = ap.parse_args(argv)
+    k = 5 if args.k5 else 3
+    checks, timed = (CHECKS_K5, TIMED_K5) if args.k5 else (CHECKS, TIMED)
     if not torch.cuda.is_available():
         raise SystemExit("zband_sm90_variants: no CUDA device")
     zc.build()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    fns = {src.stem: load_variant(src) for src in args.variants}
+    fns = {src.stem: load_variant(src, k) for src in args.variants}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for b, c, n, fused, res in CHECKS:
-        hz, wz, ep = make(g, b, c, n, fused, res)
+    for b, c, n, fused, res in checks:
+        hz, wz, ep = make(g, b, c, n, fused, res, k)
         got = call_built(hz, wz, ep)
         f32 = [None if t is None else t.float() for t in (ep or ())]
-        want = (zc.zband_conv_fused_ref(hz.float(), wz.float(), *f32, k=3, bs=8) if ep
-                else zc.zband_conv_ref(hz.float(), wz.float(), 3, 8))
+        want = (zc.zband_conv_fused_ref(hz.float(), wz.float(), *f32, k=k, bs=8) if ep
+                else zc.zband_conv_ref(hz.float(), wz.float(), k, 8))
         err, top = float((got.float() - want).abs().max()), float(want.abs().max())
         same = {name: bool(torch.equal(call_variant(fn, hz, wz, ep), got))
                 for name, fn in fns.items()}
@@ -131,8 +159,8 @@ def main(argv=None) -> dict:
         if err > 2e-2 * top:
             raise AssertionError("the built kernel disagrees with the plain version")
     times = {}
-    for shape, (c, n, fused, res) in TIMED.items():
-        hz, wz, ep = make(g, 11264, c, n, fused, res)
+    for shape, (c, n, fused, res) in timed.items():
+        hz, wz, ep = make(g, 11264, c, n, fused, res, k)
         t = {name: [time_ms(lambda: call_variant(fn, hz, wz, ep))] for name, fn in fns.items()}
         t["built"] = [time_ms(lambda: call_built(hz, wz, ep)) for _ in range(2)]
         for name, fn in fns.items():

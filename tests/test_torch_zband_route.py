@@ -1,12 +1,13 @@
-"""The z-band kernels' route and the wgmma kernel's shared-memory plan, on
+"""The z-band kernels' route and the wgmma kernels' shared-memory plans, on
 the CPU.
 
 `zband_conv.route` picks, from a call's shape alone, the kernel a CUDA
 tensor runs: the wgmma kernel (sps_torch/csrc/zband_conv_sm90.cu) for the
-L0 block8 convs and the k = 3 microbenchmark, the WMMA kernel
-(zband_conv.cu) for everything else. The wgmma kernel reads its operands
-out of shared memory through descriptors; the `sm90_*` helpers carry the
-same formulas as the .cu, and the tests replay one stage's copies and
+L0 block8 convs and the k = 3 microbenchmark, the k = 5 wgmma kernel
+(zband_conv_k5_sm90.cu) for the stem, the WMMA kernel (zband_conv.cu) for
+everything else. The wgmma kernels read their operands out of shared
+memory through descriptors; the `sm90_*` and `k5_*` helpers carry the
+same formulas as the .cu files, and the tests replay the copies and
 descriptors on seeded numpy buffers: every A and B tile must come out as
 the exact slice of hz and wz it stands for."""
 
@@ -40,8 +41,19 @@ WGMMA_CALLS = {
 }
 # chip_smoke.py phase 2's small shapes: (k, bs, tcin, tcout, B).
 SMALL = [(3, 4, 2, 3, 8), (3, 8, 2, 2, 8), (5, 4, 1, 2, 8), (3, 4, 2, 2, 6), (3, 4, 2, 2, 4)]
-WMMA_CALLS = {
+# The stem (C = 24) and the other unfused k = 5 shapes the k = 5 kernel takes.
+K5_CALLS = {
     "stem k=5": (2, 5, 8, 24, 128, False, False),
+    "k=5 C=16": (3, 5, 8, 16, 128, False, False),
+    "k=5 C=8": (1, 5, 8, 8, 128, False, False),
+    "k=5 N=256": (5, 5, 8, 24, 256, False, False),
+}
+WMMA_CALLS = {
+    "stem fused": (2, 5, 8, 24, 128, True, True),
+    "stem C=48 (DIST_FEATURE)": (2, 5, 8, 48, 128, False, False),
+    "k=5 C % 8 != 0": (2, 5, 8, 12, 128, False, False),
+    "k=5 bs=4": (2, 5, 4, 24, 128, False, False),
+    "k=5 N=64": (2, 5, 8, 24, 64, False, False),
     "C % 32 != 0": (2, 3, 8, 168, 128, True, True),
     "N = 64": (2, 3, 8, 160, 64, True, True),
     **{f"small k={k} bs={bs} tcin={ti} tcout={to} B={b}": (b, k, bs, (bs + k - 1) * ti, bs * to,
@@ -55,6 +67,16 @@ def test_route_takes_wgmma(call):
     b, k, bs, c, n, fused, res = WGMMA_CALLS[call]
     hz, wz, rest = _operands(b, k, bs, c, n, fused=fused, res=res)
     assert zc.route(hz, wz, k, bs, *rest) == "wgmma"
+    # f32 operands of the same shape stay on the WMMA kernel.
+    hz32, wz32, rest32 = _operands(b, k, bs, c, n, torch.float32, fused, res)
+    assert zc.route(hz32, wz32, k, bs, *rest32) == "wmma"
+
+
+@pytest.mark.parametrize("call", sorted(K5_CALLS))
+def test_route_takes_wgmma_k5(call):
+    b, k, bs, c, n, fused, res = K5_CALLS[call]
+    hz, wz, rest = _operands(b, k, bs, c, n, fused=fused, res=res)
+    assert zc.route(hz, wz, k, bs, *rest) == "wgmma_k5"
     # f32 operands of the same shape stay on the WMMA kernel.
     hz32, wz32, rest32 = _operands(b, k, bs, c, n, torch.float32, fused, res)
     assert zc.route(hz32, wz32, k, bs, *rest32) == "wmma"
@@ -77,6 +99,11 @@ def test_route_needs_aligned_operands():
     assert zc.route(shifted, wz, 3, 8, *rest) == "wmma"
     occ = torch.zeros(rest[2].numel() + 1, dtype=hz.dtype)[1:].view(rest[2].shape)
     assert zc.route(hz, wz, 3, 8, rest[0], rest[1], occ, rest[3]) == "wmma"
+    # The stem likewise.
+    hz, wz, _ = _operands(2, 5, 8, 24, 128, fused=False)
+    assert zc.route(hz, wz, 5, 8) == "wgmma_k5"
+    shifted = torch.zeros(wz.numel() + 1, dtype=wz.dtype)[1:].view(wz.shape)
+    assert zc.route(hz, shifted, 5, 8) == "wmma"
 
 
 def test_variants_script_needs_a_card():
@@ -92,7 +119,8 @@ def test_reset_launches():
     zc.ROUTE_LAUNCHES["zband_conv_fused"]["wgmma"] = 2
     zc.reset_launches()
     assert zc.LAUNCHES == {"zband_conv": 0, "zband_conv_fused": 0}
-    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0} for name in zc.LAUNCHES}
+    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0, "wgmma_k5": 0}
+                                 for name in zc.LAUNCHES}
 
 
 def test_plan_matches_the_kernel_source():
@@ -190,3 +218,111 @@ def test_descriptors_address_the_halo_and_weight(b, c, n):
                                .astype(np.float64) @ wz[kx, ky, cs, n0 : n0 + zc.SM90_BN]
                                for kx in range(k) for ky in range(k))
                     np.testing.assert_allclose(acc, want, rtol=1e-12, atol=1e-12)
+
+
+def test_k5_plan_matches_the_kernel_source():
+    """The k = 5 helpers' tile constants are zband_conv_k5_sm90.cu's."""
+    src = (zc.CSRC / "zband_conv_k5_sm90.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    for name, value in (("KS", zc.K5_KS), ("BS", zc.K5_BS), ("GROUPS", zc.K5_GROUPS),
+                        ("A_GROUPS", zc.K5_A_GROUPS), ("BN", zc.K5_BN),
+                        ("BRICKS", zc.K5_BRICKS), ("NT", zc.K5_THREADS)):
+        assert int(consts[name]) == value, name
+    assert f"SMEM_BYTES <= {zc.SMEM_LIMIT}" in src
+    assert '#include "sm90_wgmma.cuh"' in src
+    assert zc.ROUTE_SOURCES["wgmma_k5"] == zc.CSRC / "zband_conv_k5_sm90.cu"
+    assert zc.ROUTE_SOURCES["wgmma_k5"] in zc.CUDA_SOURCES
+    assert zc.CSRC / "sm90_wgmma.cuh" in zc.HEADERS
+    assert set(zc.ROUTE_SOURCES) == set(zc.ROUTES)
+
+
+def test_k5_smem_budget():
+    plan = zc.k5_smem_plan()
+    assert plan["a_sbo"] == 192 and plan["a_lbo"] == 2304  # h * 16, h * h * 16 bytes at h = 12
+    assert plan["halo_bytes"] == 4 * 2304
+    assert plan["w_tap_bytes"] == 3 * 16 * 128  # 24 channels x 128 columns x 2 bytes
+    # 6 halos + 25 taps of weight + one zeroed group of weight rows.
+    assert plan["smem_bytes"] == 6 * 9216 + 25 * 6144 + 2048 == 210944
+    assert plan["smem_bytes"] <= zc.SMEM_LIMIT
+    # Each warpgroup holds 2 bricks; the epilogue stages their 128 rows of
+    # 272 bytes each in the freed buffer.
+    assert zc.K5_BRICKS == 2 * (zc.K5_THREADS // 128)
+    assert zc.K5_BRICKS * 64 * (2 * zc.K5_BN + 16) <= plan["smem_bytes"]
+    # Every descriptor's start and offsets fit their fields: start < 2**18
+    # bytes, lbo and sbo < 2**14 units of 16 bytes, all 16-byte aligned.
+    for brick in range(zc.K5_BRICKS):
+        for kx in range(5):
+            for ky in range(5):
+                for ks in range(2):
+                    for start, lbo, sbo in zc.k5_descriptors(brick, kx, ky, ks):
+                        assert start % 16 == 0 and lbo % 16 == 0 and sbo % 16 == 0
+                        assert start < 2**18 and lbo >> 4 < 2**14 and sbo >> 4 < 2**14
+
+
+def _k5_buffer(hz, wz, b0, n0):
+    """The k = 5 kernel's shared memory, as elements of 2 bytes, after its
+    zero stores and all five groups of copies for the block of bricks
+    b0 .. b0+5 and columns n0 .. n0+127; bricks past the batch are
+    zero-filled. Each byte is written once."""
+    b, h, _, c = hz.shape
+    n = wz.shape[-1]
+    smem = np.full(zc.k5_smem_plan()["smem_bytes"] // 2, np.nan, np.float32)
+
+    def put(dst, values):
+        assert dst % 16 == 0 and np.isnan(smem[dst // 2 : dst // 2 + 8]).all()
+        smem[dst // 2 : dst // 2 + 8] = values
+
+    for lo, hi in zc.k5_zero_ranges(c):
+        for dst in range(lo, hi, 16):
+            put(dst, 0.0)
+    hz_flat, wz_flat = hz.reshape(-1), wz.reshape(-1)
+    for i in range(zc.K5_BRICKS * h * h * c // 8):
+        brick, src, dst = zc.k5_halo_piece(i, c)
+        ok = b0 + brick < b
+        put(dst, hz_flat[b0 * h * h * c + src :][:8] if ok else 0.0)
+    for kx in range(5):
+        for e in range(5 * c // 8 * zc.K5_BN):
+            src, dst = zc.k5_weight_piece(e, kx, c, n, n0)
+            put(dst, wz_flat[src : src + 8])
+    assert not np.isnan(smem).any(), "the copies and zero stores leave no byte unwritten"
+    return smem
+
+
+@pytest.mark.parametrize("b,c,n", [(6, 24, 128), (3, 24, 256), (5, 16, 128), (2, 8, 128)])
+def test_k5_descriptors_address_the_halo_and_weight(b, c, n):
+    """Every A and B tile of all 25 taps and both k-steps is its hz or wz
+    slice exactly; the halo's zero slot reads as zeros and the weight rows
+    facing it are finite (zeros); the taps sum to the conv."""
+    rng = np.random.default_rng(c + n + b)
+    k, bs, h = 5, 8, 12
+    hz = rng.standard_normal((b, h, h, c)).astype(np.float32)
+    wz = rng.standard_normal((k, k, c, n)).astype(np.float32)  # not band-packed
+    hz_pad = np.concatenate([hz, np.zeros((b, h, h, 32 - c), np.float32)], -1)
+    wz_pad = np.concatenate([wz, np.zeros((k, k, 32 - c, n), np.float32)], 2)
+    for n0 in range(0, n, zc.K5_BN):
+        smem = _k5_buffer(hz, wz, 0, n0)
+        cols = slice(n0, n0 + zc.K5_BN)
+        for brick in range(zc.K5_BRICKS):
+            acc = np.zeros((bs * bs, zc.K5_BN), np.float64)
+            for kx in range(k):
+                for ky in range(k):
+                    for ks in range(2):
+                        (sa, la, ma), (sb, lb, mb) = zc.k5_descriptors(brick, kx, ky, ks)
+                        a = _tile(smem, sa, la, ma, bs * bs, mn_major=False)
+                        w = _tile(smem, sb, lb, mb, zc.K5_BN, mn_major=True)
+                        ch = slice(16 * ks, 16 * ks + 16)
+                        np.testing.assert_array_equal(w, wz_pad[kx, ky, ch, cols])
+                        if ks == 1:
+                            assert not a[:, 8:].any()  # the zero slot
+                            assert np.isfinite(w[8:]).all() and not w[8:].any()
+                        if brick < b:
+                            want_a = hz_pad[brick, kx : kx + bs, ky : ky + bs, ch]
+                            np.testing.assert_array_equal(a, want_a.reshape(bs * bs, 16))
+                        else:
+                            assert not a.any()  # a missing brick is zeros
+                        acc += a.astype(np.float64) @ w
+            if brick < b:
+                want = sum(hz[brick, kx : kx + bs, ky : ky + bs].reshape(bs * bs, c)
+                           .astype(np.float64) @ wz[kx, ky, :, cols]
+                           for kx in range(k) for ky in range(k))
+                np.testing.assert_allclose(acc, want, rtol=1e-12, atol=1e-12)
