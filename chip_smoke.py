@@ -20,24 +20,44 @@ Phases, each of which raises (and exits non-zero) on failure:
               kernel, the WMMA kernel on the same operands where the call
               takes a wgmma route (also at K3's shape), the plain version
               and F.conv2d (CUDA events, median of 20);
+              Then the int8 brick conv (brick_conv_int8.cu) against its
+              plain version bit for bit, bf16 and f32 outputs, at the nine
+              shapes of the shipping path's ten int8 convs (full B), at
+              ragged B = 1, 3, 5, on a zero input and on all-+-127 codes
+              (the largest |acc|); each full shape timed (kernel, plain
+              version, and the bf16 F.conv3d that the int8-off halo path
+              runs on the same halo shape) beside its bound; a shape the
+              kernel does not take must raise;
   3. parity - the port's streaming filter on the card against the same
               filter on the CPU (the path the CPU tests hold against
-              sps_tpu), f32, small config, full MinkUNet14 width;
-  4. path   - the main path: StreamingFilter at config/config.yaml with
+              sps_tpu), f32, small config, full MinkUNet14 width: the
+              zband configuration and the shipping options (CONV_MODE
+              halo, HEAD_FOLD) with INT8 off at rtol 1e-3 / atol 1e-4, then
+              with INT8 on at the int8 tolerance (check_int8_parity);
+  4. path   - the zband path: StreamingFilter at config/config.yaml with
               CONV_MODE zband, ZBAND_LEVELS 1, INT8 off (full MinkUNet14
               width, full capacities, bf16, TOPO_EVERY 8), seeded random
               weights, 10 BLT-scale synthetic scans at 0.2 m steps; checks
               overflow, scores and launch counts per route (both block8
-              convs on wgmma, the k = 5 stem on wgmma_k5), prints latencies;
+              convs on wgmma, the k = 5 stem on wgmma_k5, no int8 conv),
+              prints latencies; then the same scans in f32: max |dscore|
+              and keep flips of bf16 against f32 (bound 0.05);
   5. microbench - K3's path: sps_torch/scripts/microbench_zband.py at
               B = 11264, bs = 8, TC = 16, bf16 then f32 (TF32 off): every
               L0 conv variant timed and held against the halo variant, the
               zband_conv kernel at k = 3 against its plain version, K3's
-              launches counted over the bf16 run, all on the wgmma route.
+              launches counted over the bf16 run, all on the wgmma route;
+  6. shipping - the shipping path: StreamingFilter at config/config.yaml
+              as shipped (CONV_MODE halo, INT8, HEAD_FOLD, bf16), the same
+              weights and scans as phase 4 and its checks; brick_conv_int8
+              launched 10 times a scan and no z-band kernel; a rebuild and
+              a reuse scan with no host sync (sync debug mode "error");
+              then its int8-off twin (bound 0.1 on |dscore| against it)
+              and that twin in f32 (bound 0.05 against the twin).
 It then prints the card, one JSON line of per-kernel results and, last,
-{"ok": true, "device": {...}}. With --profile it also traces 8 scans of the
-main path with torch.profiler and prints the device busy share, the time
-per profiler range and the top kernels.
+{"ok": true, "device": {...}}. With --profile it also traces 8 scans of
+the zband path and 8 of the shipping path with torch.profiler and prints
+the device busy share, the time per profiler range and the top kernels.
 """
 
 from __future__ import annotations
@@ -62,7 +82,20 @@ REPLACES = {
     "zband_conv": "sps_tpu/ops/pallas_conv.py:218",
     "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
     "microbench_zmm": "scripts/microbench_pallas.py::make_pallas_conv (_zmm_kernel :85-119)",
+    # No Pallas source: the XLA int8 conv of sps_tpu/ops/brick.py::brick_conv_int8 (:703).
+    "brick_conv_int8": "sps_tpu/ops/brick.py:745",
 }
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores, H100 SXM
+
+# The shipping path's int8 convs (config/config.yaml, batch 1): (call,
+# level, calls a scan, TCin, TCout); B is the level's brick capacity.
+INT8_CALLS = [
+    ("block8_0.conv1", 0, 1, 32, 16), ("block8_0.conv2", 0, 1, 16, 16),
+    ("block1_0.conv1/conv2", 1, 2, 16, 16), ("block7_0.conv1", 1, 1, 48, 32),
+    ("block7_0.conv2", 1, 1, 32, 32), ("block2_0.conv1", 2, 1, 16, 32),
+    ("block2_0.conv2", 2, 1, 32, 32), ("block6_0.conv1", 2, 1, 96, 64),
+    ("block6_0.conv2", 2, 1, 64, 64),
+]
 
 
 def route_source(route) -> str:
@@ -322,6 +355,116 @@ def phase_kernels(card):
     return errs, per_call, k3
 
 
+def int8_case(b, c, n, seed, kind="rand"):
+    """Seeded int8 operands: halo codes and the weight in the quantizer's
+    layout (a transposed view of (3, 3, 3, N, C)), and an f32 scale. kind
+    "rand": random codes; "zero": a zero halo; "max": every code +-127,
+    the halo's sign set per channel (sigma_c) and the weight's to
+    sigma_c * tau_n, so that |acc| = 27 * C * 127**2 everywhere; "pm127":
+    as "max" with 5% of the weight's signs flipped, which leaves |acc| above
+    2**24, where int32 -> f32 rounds."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def signs(shape):
+        return torch.randint(0, 2, shape, generator=g, device="cuda") * 2 - 1
+
+    if kind in ("max", "pm127"):
+        sigma, tau = signs((c,)), signs((n, 1))
+        h8 = (127 * sigma).expand(b, 10, 10, 10, c)
+        w8 = (127 * sigma * tau).expand(3, 3, 3, n, c)
+        if kind == "pm127":
+            flip = torch.rand((3, 3, 3, n, c), generator=g, device="cuda") < 0.05
+            w8 = torch.where(flip, -w8, w8)
+    else:
+        h8 = torch.randint(-127, 128, (b, 10, 10, 10, c), generator=g, device="cuda")
+        w8 = torch.randint(-127, 128, (3, 3, 3, n, c), generator=g, device="cuda")
+        if kind == "zero":
+            h8 = torch.zeros_like(h8)
+    scale = (0.5 + torch.rand(n, generator=g, device="cuda")) * 1e-4
+    return (h8.to(torch.int8).contiguous(), w8.to(torch.int8).contiguous().transpose(-1, -2),
+            scale)
+
+
+def check_int8(h8, w8, scale, tag):
+    """The kernel against its plain version, bit for bit, bf16 and f32 out."""
+    import torch
+
+    from sps_torch.ops import brick_conv_int8 as bi8
+
+    for dtype, bits in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+        got = bi8.brick_conv_int8(h8, w8, scale, dtype)
+        want = bi8.brick_conv_int8_ref(h8, w8, scale, dtype)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(bits), want.view(bits))
+        err = float((got.float() - want.float()).abs().max())
+        log(f"  brick_conv_int8 {tag:44s} {str(dtype)[6:]:8s} bit-equal {same} "
+            f"(max_abs_err {err:.3e}, out max-abs {float(want.float().abs().max()):.3e})")
+        if not same:
+            raise AssertionError(f"brick_conv_int8 {tag} {dtype}: kernel differs from plain")
+
+
+def phase_int8_kernel(card, bricks):
+    """Phase 2, second part: brick_conv_int8.cu against its plain version.
+    Returns the per-shape records (ms a call, calls a scan)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sps_torch.ops import brick_conv_int8 as bi8
+
+    log("phase 2b: int8 brick conv vs its plain version, bit for bit")
+    for i, (b, c, n, kind) in enumerate([(1, 16, 16, "rand"), (3, 48, 32, "rand"),
+                                         (5, 96, 64, "rand"), (3, 32, 16, "zero"),
+                                         (3, 96, 64, "max"), (5, 64, 64, "pm127"),
+                                         (1, 96, 32, "pm127")]):
+        check_int8(*int8_case(b, c, n, seed=200 + i, kind=kind),
+                   f"ragged B={b} C={c} N={n} {kind}")
+    for c, n in ((24, 16), (32, 8)):
+        h8, w8, scale = int8_case(2, c, n, seed=0)
+        for name, fn in (("wrapper", lambda: bi8.brick_conv_int8(h8, w8, scale, torch.bfloat16)),
+                         ("op", lambda: torch.ops.sps_torch.brick_conv_int8(
+                             h8, w8.transpose(-1, -2).contiguous(), scale, True,
+                             torch.cuda.current_stream().cuda_stream))):
+            try:
+                fn()
+            except (ValueError, RuntimeError) as e:
+                log(f"  unsupported C={c} N={n}: the {name} raises ({str(e).splitlines()[0][:70]})")
+            else:
+                raise AssertionError(f"brick_conv_int8 took C={c} N={n} through its {name}")
+    calls = []
+    for i, (where, level, per_scan, c, n) in enumerate(INT8_CALLS):
+        b = bricks[level]
+        h8, w8, scale = int8_case(b, c, n, seed=300 + i)
+        check_int8(h8, w8, scale, f"full {where} h8{tuple(h8.shape)} N={n}")
+        ms = time_ms(lambda: bi8.brick_conv_int8(h8, w8, scale, torch.bfloat16))
+        plain_ms = time_ms(lambda: bi8.brick_conv_int8_ref(h8, w8, scale, torch.bfloat16),
+                           runs=5, warmup=1)
+        hb = h8.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        wb = w8.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
+        conv3d_ms = time_ms(lambda: F.conv3d(hb, wb))
+        ops = 2 * b * 512 * 27 * c * n
+        nbytes = h8.numel() + w8.numel() + 4 * n + b * 512 * n * 2
+        bound_ms = max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        bound_by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+        calls.append(dict(call=where, level=f"L{level}", calls_per_scan=per_scan, b=b, c=c, n=n,
+                          ms=ms, plain_ms=plain_ms, conv3d_bf16_ms=conv3d_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, gop=ops / 1e9,
+                          gbytes=nbytes / 1e9))
+        log(f"  time brick_conv_int8 {where:20s} L{level} B={b} {c}->{n} bf16 [{card}]: "
+            f"kernel {ms:.3f} ms ({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.3f} ms, "
+            f"bf16 F.conv3d {conv3d_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{ops / 1e9:.1f} GOP, {nbytes / 1e9:.3f} GB)")
+        del h8, w8, scale, hb, wb
+        torch.cuda.empty_cache()
+    per_scan = {k: sum(c[k] * c["calls_per_scan"] for c in calls)
+                for k in ("ms", "plain_ms", "conv3d_bf16_ms", "bound_ms")}
+    log(f"  brick_conv_int8 per scan (10 calls) [{card}]: kernel {per_scan['ms']:.3f} ms, "
+        f"bound {per_scan['bound_ms']:.3f} ms, plain {per_scan['plain_ms']:.3f} ms, "
+        f"bf16 F.conv3d {per_scan['conv3d_bf16_ms']:.3f} ms")
+    return calls
+
+
 def blt_scale_scans(n_scans, ns, traj_step=0.2, extent=50.0):
     """BLT-scale synthetic world (~1.2M-point map) and n_scans scans taken
     traj_step metres apart along a loop, padded to ns points."""
@@ -346,7 +489,8 @@ def blt_scale_scans(n_scans, ns, traj_step=0.2, extent=50.0):
 
 
 def phase_parity():
-    """The filter on the card vs on the CPU: same small world, weights, scans."""
+    """The filter on the card vs on the CPU: same small world, weights, scans;
+    the zband configuration, then the shipping options."""
     import torch
 
     from sps_torch import config
@@ -354,111 +498,240 @@ def phase_parity():
     from sps_torch.models import spsnet
     from sps_torch.stream.engine import StreamingFilter
 
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     log("phase 3: streaming filter, card vs CPU (f32, config_small, full width)")
-    cfg = config.load(os.path.join(HERE, "config", "config_small.yaml"))
-    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
-        cfg.tpu, engine="atlas", conv_mode="zband", zband_levels=1, int8=False,
-        bf16=False, topo_every=2))
-    sd = spsnet.init_state_dict(cfg.sps_config(1), seed=1)
-    stable = synthetic.make_world(seed=3, extent=10.0, n_stable=10, ground_points=6000)
-    rng = np.random.default_rng(3)
-    clutter = synthetic._boxes(rng, 3, 8.0).astype(np.float32)
-    f_gpu = StreamingFilter(cfg, sd, stable)
-    f_cpu = StreamingFilter(cfg, sd, stable, device="cpu")
-    ns = cfg.tpu.scan_points
-    for i in range(2):  # rebuild, then reuse
-        pts, lab = synthetic.sample_scan(rng, stable, clutter, np.array([0.2 * i, 0.0]),
-                                         n_rays=400)
-        x = np.zeros((ns, 3), np.float32)
-        v = np.zeros(ns, bool)
-        lb = np.zeros(ns, np.float32)
-        k = min(len(pts), ns)
-        x[:k], v[:k], lb[:k] = pts[:k], True, lab[:k]
-        pose = np.eye(4, dtype=np.float32)
-        s_g, _, st_g = f_gpu(x, v, lb, pose)
-        s_c, _, st_c = f_cpu(x, v, lb, pose)
-        s_g = s_g.cpu()
-        err = float((s_g - s_c).abs().max())
-        log(f"  scan {i}: max |score_card - score_cpu| {err:.3e}, n_scan_voxels "
-            f"{int(st_g['n_scan_voxels'])}/{int(st_c['n_scan_voxels'])}, overflow "
-            f"{bool(st_g['overflow'])}")
-        torch.testing.assert_close(s_g, s_c, rtol=1e-3, atol=1e-4)
-        for key in ("n_scan_voxels", "n_submap_voxels", "topo_miss_points", "overflow"):
-            if int(st_g[key]) != int(st_c[key]):
-                raise AssertionError(f"parity scan {i}: {key} differs")
+    base = config.load(os.path.join(HERE, "config", "config_small.yaml"))
+    for label, opts in (("zband", dict(conv_mode="zband", zband_levels=1, int8=False)),
+                        ("shipping int8-off", dict(conv_mode="halo", int8=False, head_fold=True)),
+                        ("shipping", dict(conv_mode="halo", int8=True, head_fold=True))):
+        cfg = dataclasses.replace(base, tpu=dataclasses.replace(
+            base.tpu, engine="atlas", bf16=False, topo_every=2, **opts))
+        sd = spsnet.init_state_dict(cfg.sps_config(1), seed=1)
+        stable = synthetic.make_world(seed=3, extent=10.0, n_stable=10, ground_points=6000)
+        rng = np.random.default_rng(3)
+        clutter = synthetic._boxes(rng, 3, 8.0).astype(np.float32)
+        f_gpu = StreamingFilter(cfg, sd, stable)
+        f_cpu = StreamingFilter(cfg, sd, stable, device="cpu")
+        ns = cfg.tpu.scan_points
+        for i in range(2):  # rebuild, then reuse
+            pts, lab = synthetic.sample_scan(rng, stable, clutter, np.array([0.2 * i, 0.0]),
+                                             n_rays=400)
+            x = np.zeros((ns, 3), np.float32)
+            v = np.zeros(ns, bool)
+            lb = np.zeros(ns, np.float32)
+            k = min(len(pts), ns)
+            x[:k], v[:k], lb[:k] = pts[:k], True, lab[:k]
+            pose = np.eye(4, dtype=np.float32)
+            s_g, _, st_g = f_gpu(x, v, lb, pose)
+            s_c, _, st_c = f_cpu(x, v, lb, pose)
+            s_g = s_g.cpu()
+            diff = (s_g - s_c).abs()
+            log(f"  {label} scan {i}: max |score_card - score_cpu| {float(diff.max()):.3e} "
+                f"({int((diff > 1e-6).sum())} of {int(v.sum())} valid points beyond 1e-6), "
+                f"n_scan_voxels {int(st_g['n_scan_voxels'])}/{int(st_c['n_scan_voxels'])}, "
+                f"overflow {bool(st_g['overflow'])}")
+            if opts["int8"]:
+                check_int8_parity(s_g.numpy(), s_c.numpy(), v, cfg.threshold)
+            else:
+                torch.testing.assert_close(s_g, s_c, rtol=1e-3, atol=1e-4)
+            for key in ("n_scan_voxels", "n_submap_voxels", "topo_miss_points", "overflow"):
+                if int(st_g[key]) != int(st_c[key]):
+                    raise AssertionError(f"parity {label} scan {i}: {key} differs")
+        del f_gpu, f_cpu
+        torch.cuda.empty_cache()
 
 
-def phase_path(card):
+INT8_ATOL = 2e-3
+
+
+def check_int8_parity(got, want, valid, eps):
+    """The int8 path on two devices. The codes round(x / s_in) move by one
+    where an input lies at a rounding tie and the devices' f32 sums differ
+    in their last bits (a diagnostic run found 2 of 25M codes at the first
+    such conv, both within 1.1e-5 of the tie); the difference then
+    propagates. One code step is 1/127 of a layer's max-abs, and through
+    the sigmoid (slope <= 1/4) it moves a score by at most ~2e-3: every
+    score within INT8_ATOL, keep decisions equal beyond 1e-2 of eps (the
+    tolerance of tests/test_torch_halo.py)."""
+    err = float(np.abs(got - want).max())
+    if not err <= INT8_ATOL:
+        raise AssertionError(f"int8 parity: max |dscore| {err} exceeds {INT8_ATOL}")
+    far = valid & (np.abs(want - eps) > 1e-2)
+    if ((got <= eps) != (want <= eps))[far].any():
+        raise AssertionError("int8 parity: a keep decision flips beyond 1e-2 of eps")
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from sps_torch.ops import brick_conv_int8 as bi8
+    from sps_torch.ops import zband_conv as zc
+
+    zc.reset_launches()
+    bi8.reset_launches()
+
+
+def read_counts():
+    """Every kernel's launch count: the z-band kernels per route, then int8."""
+    from sps_torch.ops import brick_conv_int8 as bi8
+    from sps_torch.ops import zband_conv as zc
+
+    return {**{name: dict(r) for name, r in zc.ROUTE_LAUNCHES.items()}, **bi8.LAUNCHES}
+
+
+def drive(cfg, sd, stable, data):
+    """The filter over the scans with every launch count set to 0 just
+    before and read just after. Returns the filter and the run: per-scan
+    latencies, scores/keep as numpy, stats as numbers, launches, peak
+    device memory."""
     import torch
 
-    from sps_torch import config
-    from sps_torch.models import spsnet
-    from sps_torch.ops import zband_conv as zc
     from sps_torch.stream.engine import StreamingFilter
 
-    log("phase 4: main path (config.yaml, zband, int8 off, bf16, full width)")
-    cfg = config.load(os.path.join(HERE, "config", "config.yaml"))
-    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
-        cfg.tpu, conv_mode="zband", zband_levels=1, int8=False))
+    scans, valids, labels = data
+    filt = StreamingFilter(cfg, sd, stable)
+    pose = np.eye(4, dtype=np.float32)  # scans are already in the map frame
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    lat, results = [], []
+    for i in range(len(scans)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results.append(filt(scans[i], valids[i], labels[i], pose))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    scores = [r[0].float().cpu().numpy() for r in results]
+    keep = [r[1].cpu().numpy() for r in results]
+    stats = [{k: float(v) for k, v in r[2].items()} for r in results]
+    return filt, dict(lat=lat, scores=scores, keep=keep, stats=stats, launches=launches,
+                      peak=peak)
+
+
+def check_run(run, valids, topo_every, card, label):
+    """Phase 4's checks on a run; prints each scan and the latencies."""
+    for i, (s, st) in enumerate(zip(run["scores"], run["stats"])):
+        v = valids[i]
+        prog = "rebuild" if i % topo_every == 0 else "reuse"
+        log(f"  scan {i} ({prog}): {run['lat'][i]:.2f} ms, n_kept {int(st['n_kept'])}, "
+            f"n_scan_voxels {int(st['n_scan_voxels'])}, n_submap_voxels "
+            f"{int(st['n_submap_voxels'])}, topo_miss_points "
+            f"{int(st['topo_miss_points'])}, dIoU {st['dIoU']:.4f}, "
+            f"overflow {bool(st['overflow'])}")
+        if bool(st["overflow"]):
+            raise AssertionError(f"{label} scan {i}: capacity overflow")
+        if s.shape != v.shape or not np.isfinite(s).all():
+            raise AssertionError(f"{label} scan {i}: scores not finite / wrong shape {s.shape}")
+        if s.min() < 0 or s.max() > 1 or (s[~v] != 0).any() or not (s[v] > 0).all():
+            raise AssertionError(f"{label} scan {i}: scores outside (0, 1] on valid points")
+        if int(st["n_kept"]) <= 0:
+            raise AssertionError(f"{label} scan {i}: no point kept")
+        if "topo_miss_points" not in st:
+            raise AssertionError(f"{label} scan {i}: topo_miss_points not reported")
+    p50 = statistics.median(run["lat"])
+    log(f"  {label}: per-scan latency ms {[round(x, 2) for x in run['lat']]}; p50 {p50:.2f} ms; "
+        f"peak device memory {run['peak'] / 2**30:.2f} GiB [{card}]")
+    return p50
+
+
+def check_launches(run, want, label):
+    log(f"  {label}: kernel launches {run['launches']} (expected {want})")
+    if run["launches"] != want:
+        raise AssertionError(f"{label}: launches {run['launches']}, expected {want}")
+
+
+def compare_runs(a, b, valids, eps, bound, what):
+    """max |dscore| over valid points and keep flips at eps of run a
+    against run b; raises beyond the bound."""
+    d = max(float(np.abs(sa - sb)[v].max()) for sa, sb, v in zip(a["scores"], b["scores"], valids))
+    flips = sum(int(((sa <= eps) != (sb <= eps))[v].sum())
+                for sa, sb, v in zip(a["scores"], b["scores"], valids))
+    n = sum(int(v.sum()) for v in valids)
+    log(f"  {what}: max |dscore| {d:.4e} (bound {bound}), keep flips at eps {eps}: {flips} "
+        f"of {n} valid points")
+    if not d <= bound:
+        raise AssertionError(f"{what}: max |dscore| {d} exceeds {bound}")
+    return dict(max_dscore=d, keep_flips=flips, valid_points=n)
+
+
+def twin(cfg, **tpu):
+    return dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, **tpu))
+
+
+def phase_path(card, shipped, sd, stable, data, profile):
+    import torch
+
+    log("phase 4: zband path (config.yaml, zband, int8 off, bf16, full width)")
+    cfg = twin(shipped, conv_mode="zband", zband_levels=1, int8=False)
     scfg = cfg.sps_config(1)
     log(f"  caps {scfg.caps.bricks} extent {scfg.atlas_extent} planes {scfg.unet.planes} "
         f"dtype {scfg.unet.dtype} topo_every {cfg.tpu.topo_every}")
-    n_scans = 10
-    t0 = time.time()
-    stable, scans, labels, valids = blt_scale_scans(n_scans, cfg.tpu.scan_points)
-    log(f"  data: map {len(stable)} points, scan valid points "
-        f"{[int(v.sum()) for v in valids]} ({time.time() - t0:.1f} s)")
-    sd = spsnet.init_state_dict(scfg, seed=0)
-    filt = StreamingFilter(cfg, sd, stable)
-    torch.cuda.synchronize()
+    filt, run = drive(cfg, sd, stable, data)
     log(f"  map atlas: {int(filt.map_grid.num_bricks)} bricks, extent {filt.map_grid.extent}")
-    pose = np.eye(4, dtype=np.float32)  # scans are already in the map frame
+    n_scans = len(data[0])
+    run["p50"] = check_run(run, data[1], cfg.tpu.topo_every, card, "zband path")
+    check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
+                         "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans, "wgmma_k5": 0},
+                         "brick_conv_int8": 0}, "zband path")
+    if profile:
+        phase_profile(filt, data, card, "zband path")
+    del filt
+    torch.cuda.empty_cache()
+    _, f32 = drive(twin(cfg, bf16=False), sd, stable, data)
+    run["bf16_vs_f32"] = compare_runs(run, f32, data[1], cfg.threshold, 0.05,
+                                      "zband path bf16 vs f32")
+    return run
 
-    torch.cuda.reset_peak_memory_stats()
-    zc.reset_launches()
-    lat = []
-    results = []
-    for i in range(n_scans):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        scores, keep, stats = filt(scans[i], valids[i], labels[i], pose)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t) * 1e3)
-        results.append((scores, keep, stats))
-    launches = dict(zc.LAUNCHES)
-    routes = {name: dict(r) for name, r in zc.ROUTE_LAUNCHES.items()}
-    peak = torch.cuda.max_memory_allocated()
 
-    for i, (scores, keep, stats) in enumerate(results):
-        s = scores.float().cpu().numpy()
-        v = valids[i]
-        prog = "rebuild" if i % cfg.tpu.topo_every == 0 else "reuse"
-        log(f"  scan {i} ({prog}): {lat[i]:.2f} ms, n_kept {int(stats['n_kept'])}, "
-            f"n_scan_voxels {int(stats['n_scan_voxels'])}, n_submap_voxels "
-            f"{int(stats['n_submap_voxels'])}, topo_miss_points "
-            f"{int(stats['topo_miss_points'])}, dIoU {float(stats['dIoU']):.4f}, "
-            f"overflow {bool(stats['overflow'])}")
-        if bool(stats["overflow"]):
-            raise AssertionError(f"scan {i}: capacity overflow")
-        if s.shape != v.shape or not np.isfinite(s).all():
-            raise AssertionError(f"scan {i}: scores not finite / wrong shape {s.shape}")
-        if s.min() < 0 or s.max() > 1 or (s[~v] != 0).any() or not (s[v] > 0).all():
-            raise AssertionError(f"scan {i}: scores outside (0, 1] on valid points")
-        if int(stats["n_kept"]) <= 0:
-            raise AssertionError(f"scan {i}: no point kept")
-        if "topo_miss_points" not in stats:
-            raise AssertionError(f"scan {i}: topo_miss_points not reported")
-    p50 = statistics.median(lat)
-    log(f"  per-scan latency ms {[round(x, 2) for x in lat]}; p50 {p50:.2f} ms; "
-        f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
-    want = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
-            "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans, "wgmma_k5": 0}}
-    log(f"  kernel launches on the path: {launches}, per route {routes} (expected {want})")
-    for key, per_route in want.items():
-        if routes[key] != per_route or launches[key] != sum(per_route.values()):
-            raise AssertionError(f"{key} launched {launches[key]} times, per route "
-                                 f"{routes[key]}, expected {per_route}")
-    return launches, filt, (scans, valids, labels)
+def phase_shipping(card, shipped, sd, stable, data, profile):
+    """The shipping path: config/config.yaml as shipped, then its int8-off
+    twin and that twin in f32, over the same scans and weights."""
+    import torch
+
+    log("phase 6: shipping path (config.yaml as shipped: halo, INT8, HEAD_FOLD, bf16)")
+    scfg = shipped.sps_config(1)
+    log(f"  caps {scfg.caps.bricks} conv_mode {scfg.unet.conv_mode} int8 {scfg.unet.int8} "
+        f"head_fold {scfg.unet.head_fold} dtype {scfg.unet.dtype} topo_every "
+        f"{shipped.tpu.topo_every}")
+    if not (scfg.unet.conv_mode == "halo" and scfg.unet.int8 and scfg.unet.head_fold):
+        raise AssertionError("config/config.yaml is not the shipping configuration")
+    filt, run = drive(shipped, sd, stable, data)
+    n_scans = len(data[0])
+    run["p50"] = check_run(run, data[1], shipped.tpu.topo_every, card, "shipping path")
+    check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                         "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                         "brick_conv_int8": 10 * n_scans}, "shipping path")
+    # A rebuild and a reuse scan with the inputs already on the card under
+    # sync debug mode "error": a call that waits for the device raises.
+    filt.invalidate()
+    on_card = [torch.as_tensor(a[:2], device="cuda") for a in data]
+    pose = torch.eye(4, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(2):
+            filt(on_card[0][i], on_card[1][i], on_card[2][i], pose)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("  a rebuild and a reuse scan ran in sync debug mode 'error': no host sync")
+    if profile:
+        phase_profile(filt, data, card, "shipping path")
+    del filt
+    torch.cuda.empty_cache()
+    _, no_int8 = drive(twin(shipped, int8=False), sd, stable, data)
+    _, f32 = drive(twin(shipped, int8=False, bf16=False), sd, stable, data)
+    eps = shipped.threshold
+    run["int8_vs_twin"] = compare_runs(run, no_int8, data[1], eps, 0.1,
+                                       "shipping path (int8) vs its int8-off twin")
+    run["twin_bf16_vs_f32"] = compare_runs(no_int8, f32, data[1], eps, 0.05,
+                                           "int8-off twin bf16 vs f32")
+    # The two bounds above add up to this one.
+    run["int8_vs_f32"] = compare_runs(run, f32, data[1], eps, 0.15,
+                                      "shipping path (int8, bf16) vs the f32 twin")
+    return run
 
 
 def phase_microbench(card):
@@ -509,10 +782,11 @@ def _incl_device_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(filt, data, card, n=8):
+def phase_profile(filt, data, card, label, n=8):
     """--profile: torch.profiler over n scans from a fresh rebuild (1
-    rebuild + n-1 reuse at TOPO_EVERY 8): device busy share, time per
-    profiler range (sps.*) and the kernels that take the most device time."""
+    rebuild + n-1 reuse at TOPO_EVERY 8): device busy share, kernel time and
+    launches per scan, time per profiler range (sps.*) and the kernels that
+    take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -534,9 +808,9 @@ def phase_profile(filt, data, card, n=8):
     kernels = [e for e in ka if on_device(e) and not e.key.startswith("sps.")]
     busy = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
-    log(f"profile: {n} scans, wall {wall_us / 1e3:.2f} ms, kernels {busy / 1e3:.2f} ms "
-        f"(device busy {100 * busy / wall_us:.1f}%), {launches / n:.0f} kernel launches "
-        f"per scan [{card}]")
+    log(f"profile ({label}): {n} scans, wall {wall_us / 1e3:.2f} ms, kernels "
+        f"{busy / 1e3:.2f} ms ({busy / n / 1e3:.2f} ms per scan; device busy "
+        f"{100 * busy / wall_us:.1f}%), {launches / n:.0f} kernel launches per scan [{card}]")
     spans = {e.key: _device_us(e) for e in ka if on_device(e) and e.key.startswith("sps.")}
     for e in sorted((e for e in ka if not on_device(e) and e.key.startswith("sps.")),
                     key=lambda e: e.key):
@@ -554,15 +828,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from sps_torch import config
+    from sps_torch.models import spsnet
+    from sps_torch.ops import brick_conv_int8 as bi8
     from sps_torch.ops import zband_conv as zc
 
+    profile = "--profile" in sys.argv[1:]
     log("phase 1: build")
     t0 = time.time()
     zc.build()
     log(f"  built/loaded {', '.join(os.path.relpath(p, HERE) for p in zc.SOURCES)} "
         f"in {time.time() - t0:.1f} s")
     for line in zc.build_log.splitlines():
-        entry = re.search(r"entry function '\S*?\d(zband_\w*?kernel)(?:I(\w*?)E)?", line)
+        entry = re.search(r"entry function '\S*?\d((?:zband_\w*?|brick_int8_)kernel)"
+                          r"(?:I(\w*?)EEv)?", line)
         if entry:
             log(f"  ptxas: {entry.group(1)}" + (f"<{entry.group(2)}>" if entry.group(2) else ""))
         elif "registers" in line or "spill" in line or "(C75" in line:
@@ -571,12 +850,22 @@ def main() -> int:
     card = card_line()
     log(f"  card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    shipped = config.load(os.path.join(HERE, "config", "config.yaml"))
+    scfg = shipped.sps_config(1)
     errs, per_call, k3_same_call = phase_kernels(card)
+    int8_calls = phase_int8_kernel(card, scfg.caps.bricks)
     phase_parity()
-    launches, filt, data = phase_path(card)
-    if "--profile" in sys.argv[1:]:
-        phase_profile(filt, data, card)
+
+    n_scans = 10
+    t0 = time.time()
+    stable, scans, labels, valids = blt_scale_scans(n_scans, shipped.tpu.scan_points)
+    data = (scans, valids, labels)
+    log(f"data: map {len(stable)} points, scan valid points "
+        f"{[int(v.sum()) for v in valids]} ({time.time() - t0:.1f} s)")
+    sd = spsnet.init_state_dict(scfg, seed=0)
+    zband = phase_path(card, shipped, sd, stable, data, profile)
     k3 = phase_microbench(card)
+    ship = phase_shipping(card, shipped, sd, stable, data, profile)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -586,7 +875,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": calls[0]["source"],
             "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": errs[name],
+            "launches": sum(zband["launches"][name].values()), "max_abs_err": errs[name],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": calls[0]["bound_by"],
             "library_ms": total["library_ms"],
@@ -609,6 +898,22 @@ def main() -> int:
                    "gflop": k3["gflop_band"], "gbytes": k3["gbytes"],
                    "phase2_ms": k3_same_call["ms"], "phase2_wmma_ms": k3_same_call["wmma_ms"]}],
     })
+    # The ten int8 calls of a scan: per-scan sums of the per-call times.
+    per_scan = {k: sum(c[k] * c["calls_per_scan"] for c in int8_calls)
+                for k in ("ms", "plain_ms", "bound_ms", "conv3d_bf16_ms")}
+    kernels.append({
+        "name": "brick_conv_int8", "route": "cuda",
+        "source": os.path.relpath(bi8.SOURCE, HERE), "replaces": REPLACES["brick_conv_int8"],
+        "launches": ship["launches"]["brick_conv_int8"], "max_abs_err": 0.0,
+        "ms": per_scan["ms"], "plain_ms": per_scan["plain_ms"],
+        "bound_ms": per_scan["bound_ms"], "bound_by": max(
+            ("bytes", "operations"), key=lambda by: sum(
+                c["bound_ms"] * c["calls_per_scan"] for c in int8_calls if c["bound_by"] == by)),
+        "library_ms": None,
+        "conv3d_bf16_ms": per_scan["conv3d_bf16_ms"], "calls": int8_calls,
+    })
+    log(f"paths [{card}]: zband p50 {zband['p50']:.2f} ms, peak {zband['peak'] / 2**30:.2f} GiB; "
+        f"shipping p50 {ship['p50']:.2f} ms, peak {ship['peak'] / 2**30:.2f} GiB")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-// PyTorch binding of the z-band kernels in zband_conv.cu (route 0, WMMA),
-// zband_conv_sm90.cu (route 1, wgmma at k = 3) and zband_conv_k5_sm90.cu
-// (route 2, wgmma at the k = 5 stem, unfused only): registers
-// torch.ops.sps_torch.zband_conv and torch.ops.sps_torch.zband_conv_fused
+// PyTorch binding of the port's CUDA kernels: the z-band kernels in
+// zband_conv.cu (route 0, WMMA), zband_conv_sm90.cu (route 1, wgmma at
+// k = 3) and zband_conv_k5_sm90.cu (route 2, wgmma at the k = 5 stem,
+// unfused only), and the int8 brick conv in brick_conv_int8.cu: registers
+// torch.ops.sps_torch.zband_conv, zband_conv_fused and brick_conv_int8
 // for CUDA tensors. The kernel files
 // have plain C entry points and no PyTorch headers; this file includes only
 // the operator registry and one ATen operator, so all build in seconds
@@ -26,6 +27,8 @@ extern "C" int sps_zband_conv_sm90(int fused, const void* hz, const void* wz, co
                                    void* stream);
 extern "C" int sps_zband_conv_k5_sm90(const void* hz, const void* wz, void* out, long long batch,
                                       int k, int bs, int C, int N, void* stream);
+extern "C" int sps_brick_conv_int8(const void* h8, const void* wt, const float* scale, void* out,
+                                   long long batch, int C, int N, int out_bf16, void* stream);
 
 namespace {
 
@@ -112,6 +115,37 @@ at::Tensor zband_conv_fused(const at::Tensor& hz, const at::Tensor& wz, const at
                 route, stream);
 }
 
+// h8 (B, 10, 10, 10, C) and wt (3, 3, 3, N, C) int8, scale (N,) f32; returns
+// (B, 8, 8, 8, N) in bf16 or f32. A shape the kernel does not take raises.
+at::Tensor brick_conv_int8(const at::Tensor& h8, const at::Tensor& wt, const at::Tensor& scale,
+                           bool out_bf16, int64_t stream) {
+  TORCH_CHECK(h8.is_cuda(), "brick_conv_int8 takes CUDA tensors");
+  TORCH_CHECK(h8.scalar_type() == at::kChar && wt.scalar_type() == at::kChar,
+              "h8 and wt must be int8");
+  TORCH_CHECK(h8.dim() == 5 && h8.size(1) == 10 && h8.size(2) == 10 && h8.size(3) == 10,
+              "h8 must be (B, 10, 10, 10, C)");
+  const int64_t b = h8.size(0), c = h8.size(4);
+  TORCH_CHECK(wt.dim() == 5 && wt.size(0) == 3 && wt.size(1) == 3 && wt.size(2) == 3 &&
+                  wt.size(4) == c,
+              "wt must be (3, 3, 3, N, C)");
+  const int64_t n = wt.size(3);
+  check_operand(h8, h8, "h8");
+  check_operand(wt, h8, "wt");
+  check_operand(scale, h8, "scale");
+  TORCH_CHECK(scale.scalar_type() == at::kFloat && scale.dim() == 1 && scale.size(0) == n,
+              "scale must be f32 (N,)");
+  at::Tensor out =
+      at::empty({b, 8, 8, 8, n}, h8.options().dtype(out_bf16 ? at::kBFloat16 : at::kFloat));
+  const int err = sps_brick_conv_int8(h8.data_ptr(), wt.data_ptr(), scale.data_ptr<float>(),
+                                      out.data_ptr(), b, static_cast<int>(c),
+                                      static_cast<int>(n), out_bf16 ? 1 : 0,
+                                      reinterpret_cast<void*>(stream));
+  TORCH_CHECK(err != -1, "brick_conv_int8 does not take this call: it needs C % 16 == 0 with ",
+              "16 <= C <= 128, N == 16 or N % 32 == 0, and 16-byte aligned operands");
+  TORCH_CHECK(err == 0, "brick_conv_int8 launch failed: cudaError ", err);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(sps_torch, m) {
@@ -119,9 +153,11 @@ TORCH_LIBRARY(sps_torch, m) {
   m.def(
       "zband_conv_fused(Tensor hz, Tensor wz, Tensor scale, Tensor bias, Tensor occ, "
       "Tensor? res, int k, int bs, bool relu, int route, int stream) -> Tensor");
+  m.def("brick_conv_int8(Tensor h8, Tensor wt, Tensor scale, bool out_bf16, int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(sps_torch, CUDA, m) {
   m.impl("zband_conv", &zband_conv);
   m.impl("zband_conv_fused", &zband_conv_fused);
+  m.impl("brick_conv_int8", &brick_conv_int8);
 }

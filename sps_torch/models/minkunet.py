@@ -14,7 +14,10 @@ and aliased voxel-row levels (ops.atlas.RowLevel) at L3/L4. With
 conv_mode "zband" the first `zband_levels` brick levels run in the
 z-folded layout (B, bs, bs, bs*TC): the stride-1 convs there go through
 the zband_conv kernels, BasicBlocks through the fused kernel. Other brick
-levels use the dense halo conv, row levels the row-gather conv.
+levels use the dense halo conv ("halo", as under conv_mode "halo"), row
+levels the row-gather conv. With int8 the 3^3 convs of unfolded brick
+levels run as int8 convs (the brick_conv_int8 kernel); with head_fold
+the 1x1 head runs on the z-folded layout.
 """
 
 from __future__ import annotations
@@ -45,12 +48,17 @@ class MinkUNetConfig:
     dtype: torch.dtype = torch.float32
     # Brick stride-1 conv formulation: "zband" folds levels [0, zband_levels)
     # and runs the rest as "halo" (dense conv over the assembled halo).
-    conv_mode: str = "zband"
+    # "region" (sps_tpu's default) is not ported: a 3^3 brick conv under it
+    # raises NotImplementedError; larger kernels run "halo", as in sps_tpu.
+    conv_mode: str = "region"
     zband_levels: int = 1
-    # Options of sps_tpu that this port does not run yet; setting one where
-    # it would take effect raises NotImplementedError.
+    # Inference-only int8 math for the 3^3 convs of unfolded brick levels
+    # (ops.brick.brick_conv_int8), quantized from the f32 master kernels.
     int8: bool = False
+    # Not ported yet: setting it where it would take effect raises
+    # NotImplementedError.
     stem_zband: bool = False
+    # Run the 1x1 head on the z-folded layout (same memory order).
     head_fold: bool = False
 
 
@@ -112,7 +120,7 @@ class SpConv(nn.Module):
     """Stride-1 sparse conv (brick or row level)."""
 
     def __init__(self, cin, cout, ksize, time_kernel, num_time, *, use_bias=False,
-                 conv_mode="zband", mask_out=True, int8=False, generator=None):
+                 conv_mode="region", mask_out=True, int8=False, generator=None):
         super().__init__()
         self.ksize, self.num_time = ksize, num_time
         self.conv_mode, self.mask_out, self.int8 = conv_mode, mask_out, int8
@@ -146,10 +154,15 @@ class SpConv(nn.Module):
                         num_time=self.num_time, relu=epilogue.get("relu", True),
                     )
                 return bk.brick_conv_zband(feats, lvl.nbr27, wd, occ, mask_out=self.mask_out)
-            if self.conv_mode not in ("zband", "halo"):
-                raise NotImplementedError(f"brick conv_mode {self.conv_mode!r}")
             if self.int8 and self.ksize == 3:
-                raise NotImplementedError("int8 brick convs are not ported yet")
+                # Quantize from the f32 master kernel, not the compute-dtype cast.
+                wd8 = bk.pack_dense_kernel(self.kernel, self.num_time)
+                return bk.brick_conv_int8(feats, lvl.nbr27, wd8, occ, mask_out=self.mask_out)
+            # Unfolded levels under "zband" use the halo assembly; sps_tpu
+            # runs kernels other than 3^3 as "halo" under every mode.
+            mode = "halo" if self.conv_mode == "zband" else self.conv_mode
+            if self.ksize == 3 and mode != "halo":
+                raise NotImplementedError(f"brick conv_mode {mode!r} is not ported")
             return bk.brick_conv(feats, lvl.nbr27, wd, occ, mask_out=self.mask_out)
         assert _is_row(lvl) and self.ksize == 3, "row levels carry 27-neighbour tables only"
         wp = sc.pack_time_toeplitz(w, self.num_time)
@@ -219,7 +232,7 @@ class BasicBlock(nn.Module):
     their own output mask; inputs to convs stay fully masked (phantom slots
     exactly zero), as the halo and neighbour gathers require."""
 
-    def __init__(self, cin, planes, num_time, block_kernel=3, conv_mode="zband",
+    def __init__(self, cin, planes, num_time, block_kernel=3, conv_mode="region",
                  int8=False, generator=None):
         super().__init__()
         self.cin, self.planes, self.conv_mode = cin, planes, conv_mode
@@ -327,5 +340,10 @@ class MinkUNet(nn.Module):
                 skips.append(x)
 
         if cfg.head_fold and _is_brick(levels[0]) and x.dim() == 5:
-            raise NotImplementedError("head_fold is not ported yet")
+            # Folded head: the 1x1 as the block-diagonal kron on the folded
+            # layout, returned folded; its memory order is the unfolded
+            # one's, so devoxelize_flat reads it unchanged.
+            o0 = occ[0]
+            occ_h = o0.reshape(o0.shape[0], o0.shape[1], o0.shape[2], -1)
+            return self.final(bk.fold_z(x), levels[0], occ_h)
         return self.final(x, levels[0], occ[0])

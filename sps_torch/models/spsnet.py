@@ -28,14 +28,15 @@ class SPSConfig:
     threshold: float = 0.84
     caps: Capacities = Capacities()
     unet: MinkUNetConfig = MinkUNetConfig(in_channels=1, out_channels=1, num_time=2)
-    # The port runs the "atlas" engine (dense-AABB brick topology).
-    engine: str = "atlas"
-    brick_side: int = 8
+    # The defaults are sps_tpu's. The port runs the "atlas" engine
+    # (dense-AABB brick topology) with brick_side 8 and row_from >= 3 only;
+    # build_levels_from_grid raises NotImplementedError on anything else.
+    engine: str = "brick"
+    brick_side: int = 4
     # Static atlas window (NB, NX, NY, NZ) in bricks.
     atlas_extent: tuple = (2, 256, 256, 96)
-    # Levels >= row_from run as voxel rows aliased to brick level li-3
-    # (needs brick_side 8 and row_from >= 3).
-    row_from: int | None = 3
+    # Levels >= row_from run as voxel rows aliased to brick level li-3.
+    row_from: int | None = None
     dist_feature: bool = False
     dist_cap: float = 1.0
 

@@ -88,7 +88,9 @@ def _prefix_rows(occb: torch.Tensor) -> torch.Tensor:
 def _occupied_cells(flat, ok, ncell):
     """(ncell,) int32 bitmap of the cells holding at least one ok entry."""
     occ = torch.zeros(ncell + 1, dtype=torch.int32, device=flat.device)
-    occ[torch.where(ok, flat, ncell)] = 1
+    # index_fill_, not occ[idx] = 1: assigning a Python scalar through an
+    # index copies it to the card and waits for the device.
+    occ.index_fill_(0, torch.where(ok, flat, ncell).long(), 1)
     return occ[:ncell]
 
 
@@ -163,7 +165,7 @@ def voxelize_bricks(coords, batch_idx, t_idx, valid, *, num_time: int,
     pb = torch.where(p2b >= 0, p2b, brick_capacity).long()
     tcl = t_idx.clamp(0, num_time - 1).long()
     occ = torch.zeros((brick_capacity + 1) * bvol * num_time, dtype=torch.float32, device=dev)
-    occ[(pb * bvol + lflat.long()) * num_time + tcl] = 1.0
+    occ.index_fill_(0, (pb * bvol + lflat.long()) * num_time + tcl, 1.0)  # no host sync
     occ = occ[: brick_capacity * bvol * num_time].reshape(brick_capacity, bs, bs, bs, num_time)
     # Occupancy is kept in bf16 (values are exactly 0/1), as in sps_tpu.
     occ = occ.to(torch.bfloat16)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sps_torch.ops import brick_conv_int8 as bi8
 from sps_torch.ops import zband_conv as zc
 from sps_torch.ops.sparse_conv import mask_slots, pack_time_toeplitz, take_rows
 
@@ -205,6 +206,48 @@ def brick_conv(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
     k = w_dense.shape[0]
     h = halo(feats, nbr27, k // 2)
     out = _conv3d_valid(h, w_dense).to(feats.dtype)
+    return mask_bricks(out, occ) if mask_out else out
+
+
+def quantize_act(feats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-tensor symmetric int8 codes of the activations and their
+    scale s_in (a 0-d f32 device tensor; no host sync). The abs-max is taken
+    in the storage dtype (exact), scaling and rounding (half to even) in
+    f32. Phantom slots are exact zeros and quantize to code 0."""
+    amax = feats.abs().amax().float()
+    s_in = torch.clamp_min(amax, 1e-12) * (1.0 / 127.0)
+    inv = 1.0 / s_in
+    q = torch.clamp(torch.round(feats.float() * inv), -127.0, 127.0).to(torch.int8)
+    return q, s_in
+
+
+def quantize_weight(w_dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 codes of a (k, k, k, TCin, TCout)
+    kernel and their (TCout,) f32 scales s_w, from the f32 values (dividing
+    by s_w, where the activations multiply by 1/s_in). The codes are stored
+    as (k, k, k, TCout, TCin) and returned as its transposed view, the
+    layout the CUDA kernel reads."""
+    wf = w_dense.float()
+    s_w = torch.clamp_min(wf.abs().amax(dim=(0, 1, 2, 3)), 1e-12) * (1.0 / 127.0)
+    wt = wf.transpose(-1, -2).contiguous() / s_w[:, None]
+    q = torch.clamp(torch.round(wt), -127.0, 127.0).to(torch.int8)
+    return q.transpose(-1, -2), s_w
+
+
+def brick_conv_int8(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
+    """Stride-1 sparse 3^3 conv with int8 math (inference; sps_tpu's
+    brick_conv_int8): quantize the activations per tensor and the weight
+    per output channel, assemble the halo of the int8 codes (so that the
+    gathers move int8), run the int8 conv with int32 sums (the
+    brick_conv_int8 kernel) and dequantize by s_in * s_w into feats.dtype.
+
+    feats (B, bs, bs, bs, TCin); w_dense (3, 3, 3, TCin, TCout), quantized
+    from its f32 values."""
+    k = w_dense.shape[0]
+    q, s_in = quantize_act(feats)
+    h = halo(q, nbr27, k // 2)
+    w8, s_w = quantize_weight(w_dense)
+    out = bi8.brick_conv_int8(h, w8, s_in * s_w, feats.dtype)
     return mask_bricks(out, occ) if mask_out else out
 
 

@@ -41,7 +41,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 CUDA_SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_sm90.cu",
-                CSRC / "zband_conv_k5_sm90.cu")
+                CSRC / "zband_conv_k5_sm90.cu", CSRC / "brick_conv_int8.cu")
 OP_SOURCE = CSRC / "zband_conv_op.cpp"
 SOURCES = (*CUDA_SOURCES, OP_SOURCE)
 HEADERS = (CSRC / "sm90_wgmma.cuh",)  # included by both wgmma sources
@@ -98,8 +98,9 @@ def _run(cmds: list[list[str]]) -> str:
 
 
 def build() -> None:
-    """Compile (if a source changed) and load the kernels' library, which
-    registers torch.ops.sps_torch.zband_conv and zband_conv_fused."""
+    """Compile (if a source changed) and load the port's kernel library,
+    which registers torch.ops.sps_torch.zband_conv, zband_conv_fused and
+    brick_conv_int8 (sps_torch/ops/brick_conv_int8.py builds through here)."""
     global _loaded, build_log
     if _loaded:
         return

@@ -146,7 +146,8 @@ class StreamingFilter:
         point2slot = torch.where(p2b >= 0, p2b * bvol + lflat, vox.EMPTY)
         pb = torch.where(p2b >= 0, p2b, bcap).long()
         occ1 = torch.zeros((bcap + 1) * bvol, dtype=torch.float32, device=self.device)
-        occ1[pb * bvol + lflat.long()] = 1.0  # every point with a row is valid
+        # Every point with a row is valid; index_fill_ keeps the host unsynced.
+        occ1.index_fill_(0, pb * bvol + lflat.long(), 1.0)
         occ1 = occ1[: bcap * bvol].reshape(bcap, bs, bs, bs).to(l0.occ.dtype)
         overlap = occ1 * mocc
         occ = torch.stack([overlap, occ1], dim=-1)

@@ -101,14 +101,22 @@ def test_spsmodel_zband_matches_sps_tpu(weights, seed):
 
 
 def test_unported_options_raise(weights):
-    """Options of sps_tpu that this slice does not run fail loudly."""
-    cfg = dataclasses.replace(TCFG, unet=dataclasses.replace(TCFG.unet, stem_zband=True,
-                                                             conv_mode="halo"))
-    model = tsps.SPSModel(cfg)
+    """Of sps_tpu's options, the port does not run stem_zband, nor a 3^3
+    brick conv under conv_mode "region": both fail loudly. int8 and
+    head_fold run."""
     pb_t = tpad(*_points(3), CAPS["points"], device="cpu")
-    levels, p2s, _ = tsps.build_pyramid(pb_t, cfg)
-    with pytest.raises(NotImplementedError):
-        model(levels=levels, p2v=p2s, t_idx=pb_t.t, valid=pb_t.valid)
+    for opts, raises in ((dict(stem_zband=True, conv_mode="halo"), True),
+                         (dict(conv_mode="region"), True),
+                         (dict(int8=True, head_fold=True, conv_mode="halo"), False)):
+        cfg = dataclasses.replace(TCFG, unet=dataclasses.replace(TCFG.unet, **opts))
+        model = tsps.SPSModel(cfg)
+        levels, p2s, _ = tsps.build_pyramid(pb_t, cfg)
+        if raises:
+            with pytest.raises(NotImplementedError):
+                model(levels=levels, p2v=p2s, t_idx=pb_t.t, valid=pb_t.valid)
+        else:
+            scores, _ = model(levels=levels, p2v=p2s, t_idx=pb_t.t, valid=pb_t.valid)
+            assert bool(torch.isfinite(scores).all())
 
 
 def test_geometry_and_metrics_match():
