@@ -27,7 +27,17 @@ Phases, each of which raises (and exits non-zero) on failure:
               (the largest |acc|); each full shape timed (kernel, plain
               version, and the bf16 F.conv3d that the int8-off halo path
               runs on the same halo shape) beside its bound; a shape the
-              kernel does not take must raise;
+              kernel does not take must raise. Then its gather form (the
+              kernel gathers each brick's halo through nbr27) bit for bit
+              against its plain version, bf16 and f32, at the nine shapes
+              with nbr27 from a synthetic brick grid (~35% of neighbours
+              absent, ~10% of the slots past num_bricks), at ragged
+              B = 1, 3, 5, with every neighbour absent, with every slot
+              empty and on +-127 codes; wrapper and op must raise on what
+              they refuse; each full shape timed (gather form, the halo()
+              assembly plus the halo form, the halo form alone, and the
+              int8-off path's bf16 halo() plus F.conv3d, all on the same
+              codes and table) beside its bound;
   3. parity - the port's streaming filter on the card against the same
               filter on the CPU (the path the CPU tests hold against
               sps_tpu), f32, small config, full MinkUNet14 width: the
@@ -49,11 +59,14 @@ Phases, each of which raises (and exits non-zero) on failure:
               launches counted over the bf16 run, all on the wgmma route;
   6. shipping - the shipping path: StreamingFilter at config/config.yaml
               as shipped (CONV_MODE halo, INT8, HEAD_FOLD, bf16), the same
-              weights and scans as phase 4 and its checks; brick_conv_int8
-              launched 10 times a scan and no z-band kernel; a rebuild and
-              a reuse scan with no host sync (sync debug mode "error");
-              then its int8-off twin (bound 0.1 on |dscore| against it)
-              and that twin in f32 (bound 0.05 against the twin).
+              weights and scans as phase 4 and its checks; the gather form
+              of brick_conv_int8 launched 10 times a scan, its halo form
+              and the z-band kernels never, and 10 fewer halo() calls a
+              scan than the int8-off twin makes; num_bricks per level of
+              the last rebuild; a rebuild and a reuse scan with no host
+              sync (sync debug mode "error"); then its int8-off twin
+              (bound 0.1 on |dscore| against it) and that twin in f32
+              (bound 0.05 against the twin).
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path and 8 of the shipping path with torch.profiler and prints
@@ -82,8 +95,10 @@ REPLACES = {
     "zband_conv": "sps_tpu/ops/pallas_conv.py:218",
     "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
     "microbench_zmm": "scripts/microbench_pallas.py::make_pallas_conv (_zmm_kernel :85-119)",
-    # No Pallas source: the XLA int8 conv of sps_tpu/ops/brick.py::brick_conv_int8 (:703).
+    # No Pallas source: the XLA int8 conv of sps_tpu/ops/brick.py::brick_conv_int8 (:703);
+    # the gather form also takes in the halo assembly before it (:741).
     "brick_conv_int8": "sps_tpu/ops/brick.py:745",
+    "brick_conv_int8_gather": "sps_tpu/ops/brick.py:745",
 }
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor cores, H100 SXM
 
@@ -465,6 +480,156 @@ def phase_int8_kernel(card, bricks):
     return calls
 
 
+def grid_table(b, num_bricks, rng, fill=0.7):
+    """A (27, b) int32 neighbour table of a synthetic brick grid:
+    num_bricks bricks at random cells of a cube of ~num_bricks / fill
+    cells, rows in cell order (as the atlas numbers them), OFFS27 order;
+    the slots past num_bricks are empty (all rows -1)."""
+    from sps_torch.ops import brick as bk
+
+    side = max(1, round((num_bricks / fill) ** (1 / 3)))
+    while side**3 < num_bricks:
+        side += 1
+    cells = np.sort(rng.choice(side**3, num_bricks, replace=False))
+    lut = np.full((side + 2,) * 3, -1, np.int32)
+    x, y, z = (a + 1 for a in np.unravel_index(cells, (side,) * 3))
+    lut[x, y, z] = np.arange(num_bricks)
+    nbr = np.full((27, b), -1, np.int32)
+    for k, (dx, dy, dz) in enumerate(bk.OFFS27):
+        nbr[k, :num_bricks] = lut[x + dx, y + dy, z + dz]
+    return nbr
+
+
+def gather_case(b, num_bricks, c, n, seed, kind="rand"):
+    """Seeded operands of the gather form: codes (b, 8, 8, 8, C) (zero past
+    num_bricks, as the masked features are), a grid_table, and the weight
+    and scale of int8_case. kind "allabsent": every neighbour row -1 but
+    the centre; "pm127": int8_case's +-127 codes and 5%-flipped signs."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    nbr = grid_table(b, num_bricks, rng)
+    if kind == "allabsent":
+        nbr[np.arange(27) != 13] = -1
+    h8, w8, scale = int8_case(b, c, n, seed, "pm127" if kind == "pm127" else "rand")
+    q8 = h8[:, :8, :8, :8].contiguous()
+    q8[num_bricks:] = 0
+    return q8, torch.from_numpy(nbr).cuda(), w8, scale
+
+
+def check_gather(q8, nbr, w8, scale, tag):
+    """The gather form against its plain version, bit for bit, bf16 and f32."""
+    import torch
+
+    from sps_torch.ops import brick_conv_int8 as bi8
+
+    for dtype, bits in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+        got = bi8.brick_conv_int8_gather(q8, nbr, w8, scale, dtype)
+        want = bi8.brick_conv_int8_gather_ref(q8, nbr, w8, scale, dtype)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(bits), want.view(bits))
+        err = float((got.float() - want.float()).abs().max())
+        log(f"  brick_conv_int8_gather {tag:48s} {str(dtype)[6:]:8s} bit-equal {same} "
+            f"(max_abs_err {err:.3e}, out max-abs {float(want.float().abs().max()):.3e})")
+        if not same:
+            raise AssertionError(f"brick_conv_int8_gather {tag} {dtype}: kernel differs from plain")
+
+
+def gather_bound(b, present, c, n):
+    """(operations, bytes, bound ms, bound_by) of a gather-form call: the
+    codes of the bricks with a centre row read once, the weight, scale and
+    table, the bf16 output of all b slots written once; the int8 products
+    of the present bricks."""
+    ops = 2 * present * 512 * 27 * c * n
+    nbytes = present * 512 * c + 27 * c * n + 4 * n + 27 * b * 4 + b * 512 * n * 2
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return ops, nbytes, max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_int8_gather(card, bricks):
+    """Phase 2b, third part: the gather form of brick_conv_int8.cu against
+    its plain version, and its time beside the halo form's on the same
+    codes and table. Returns the per-shape records."""
+    import torch
+    import torch.nn.functional as F
+
+    from sps_torch.ops import brick as bk
+    from sps_torch.ops import brick_conv_int8 as bi8
+
+    log("phase 2b: int8 brick conv, gather form, vs its plain version, bit for bit")
+    for i, (b, nb, c, n, kind) in enumerate([
+            (1, 1, 16, 16, "rand"), (3, 2, 48, 32, "rand"), (5, 4, 96, 64, "rand"),
+            (5, 5, 32, 16, "allabsent"), (3, 0, 32, 32, "rand"), (5, 4, 96, 64, "pm127"),
+            (3, 3, 64, 64, "pm127")]):
+        check_gather(*gather_case(b, nb, c, n, seed=400 + i, kind=kind),
+                     f"ragged B={b} num_bricks={nb} C={c} N={n} {kind}")
+    q8, nbr, w8, scale = gather_case(4, 3, 32, 16, seed=0)
+    stream = torch.cuda.current_stream().cuda_stream
+    refused = [
+        ("C=24", dict(q8=torch.zeros((4, 8, 8, 8, 24), dtype=torch.int8, device="cuda"),
+                      w8=torch.zeros((3, 3, 3, 24, 16), dtype=torch.int8, device="cuda"))),
+        ("N=8", dict(w8=torch.zeros((3, 3, 3, 32, 8), dtype=torch.int8, device="cuda"),
+                     scale=scale[:8])),
+        ("int64 nbr27", dict(nbr=nbr.long())),
+        ("nbr27 (26, B)", dict(nbr=nbr[:26].contiguous())),
+        ("bs=4 q8", dict(q8=torch.zeros((4, 4, 4, 4, 32), dtype=torch.int8, device="cuda"))),
+    ]
+    for what, over in refused:
+        a = {**dict(q8=q8, nbr=nbr, w8=w8, scale=scale), **over}
+        for name, fn in (("wrapper", lambda: bi8.brick_conv_int8_gather(
+                              a["q8"], a["nbr"], a["w8"], a["scale"], torch.bfloat16)),
+                         ("op", lambda: torch.ops.sps_torch.brick_conv_int8_gather(
+                             a["q8"], a["nbr"], a["w8"].transpose(-1, -2).contiguous(),
+                             a["scale"], True, stream))):
+            try:
+                fn()
+            except (ValueError, RuntimeError) as e:
+                log(f"  unsupported {what}: the {name} raises ({str(e).splitlines()[0][:70]})")
+            else:
+                raise AssertionError(f"brick_conv_int8_gather took {what} through its {name}")
+    calls = []
+    for i, (where, level, per_scan, c, n) in enumerate(INT8_CALLS):
+        b = bricks[level]
+        nb = b - b // 10
+        q8, nbr, w8, scale = gather_case(b, nb, c, n, seed=500 + i)
+        absent = float((nbr[:, :nb] < 0).float().mean())
+        check_gather(q8, nbr, w8, scale, f"full {where} q8{tuple(q8.shape)} N={n}")
+        h8 = bk.halo(q8, nbr, 1)
+        qb = q8.to(torch.bfloat16)
+        wb = w8.to(torch.bfloat16).permute(4, 3, 0, 1, 2)
+        ms = time_ms(lambda: bi8.brick_conv_int8_gather(q8, nbr, w8, scale, torch.bfloat16))
+        halo_ms = time_ms(lambda: bi8.brick_conv_int8(bk.halo(q8, nbr, 1), w8, scale,
+                                                      torch.bfloat16))
+        halo_form_ms = time_ms(lambda: bi8.brick_conv_int8(h8, w8, scale, torch.bfloat16))
+        conv3d_ms = time_ms(lambda: F.conv3d(bk.halo(qb, nbr, 1).permute(0, 4, 1, 2, 3), wb))
+        plain_ms = time_ms(lambda: bi8.brick_conv_int8_gather_ref(q8, nbr, w8, scale,
+                                                                  torch.bfloat16),
+                           runs=5, warmup=1)
+        ops, nbytes, bound_ms, bound_by = gather_bound(b, nb, c, n)
+        calls.append(dict(call=where, level=f"L{level}", calls_per_scan=per_scan, b=b,
+                          num_bricks=nb, absent=absent, c=c, n=n, ms=ms, plain_ms=plain_ms,
+                          halo_plus_halo_form_ms=halo_ms, halo_form_ms=halo_form_ms,
+                          halo_conv3d_bf16_ms=conv3d_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          gop=ops / 1e9, gbytes=nbytes / 1e9))
+        log(f"  time brick_conv_int8_gather {where:20s} L{level} B={b} ({nb} bricks, "
+            f"{100 * absent:.0f}% absent) {c}->{n} bf16 [{card}]: gather {ms:.3f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s), halo()+halo form {halo_ms:.3f} ms, halo form "
+            f"alone {halo_form_ms:.3f} ms, bf16 halo()+F.conv3d {conv3d_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; {ops / 1e9:.1f} GOP, "
+            f"{nbytes / 1e9:.3f} GB)")
+        del q8, nbr, w8, scale, h8, qb, wb
+        torch.cuda.empty_cache()
+    per_scan = {k: sum(c[k] * c["calls_per_scan"] for c in calls)
+                for k in ("ms", "halo_plus_halo_form_ms", "halo_form_ms", "halo_conv3d_bf16_ms",
+                          "plain_ms", "bound_ms")}
+    log(f"  brick_conv_int8_gather per scan (10 calls) [{card}]: gather {per_scan['ms']:.3f} ms, "
+        f"bound {per_scan['bound_ms']:.3f} ms, halo()+halo form "
+        f"{per_scan['halo_plus_halo_form_ms']:.3f} ms, halo form alone "
+        f"{per_scan['halo_form_ms']:.3f} ms, bf16 halo()+F.conv3d "
+        f"{per_scan['halo_conv3d_bf16_ms']:.3f} ms")
+    return calls
+
+
 def blt_scale_scans(n_scans, ns, traj_step=0.2, extent=50.0):
     """BLT-scale synthetic world (~1.2M-point map) and n_scans scans taken
     traj_step metres apart along a loop, padded to ns points."""
@@ -572,11 +737,13 @@ def reset_counts():
 
 
 def read_counts():
-    """Every kernel's launch count: the z-band kernels per route, then int8."""
+    """Every kernel's launch count: the z-band kernels per route, then the
+    int8 kernel's halo and gather forms."""
     from sps_torch.ops import brick_conv_int8 as bi8
     from sps_torch.ops import zband_conv as zc
 
-    return {**{name: dict(r) for name, r in zc.ROUTE_LAUNCHES.items()}, **bi8.LAUNCHES}
+    return {**{name: dict(r) for name, r in zc.ROUTE_LAUNCHES.items()}, **bi8.LAUNCHES,
+            **bi8.GATHER_LAUNCHES}
 
 
 def drive(cfg, sd, stable, data):
@@ -674,7 +841,7 @@ def phase_path(card, shipped, sd, stable, data, profile):
     run["p50"] = check_run(run, data[1], cfg.tpu.topo_every, card, "zband path")
     check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
                          "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans, "wgmma_k5": 0},
-                         "brick_conv_int8": 0}, "zband path")
+                         "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, "zband path")
     if profile:
         phase_profile(filt, data, card, "zband path")
     del filt
@@ -683,6 +850,30 @@ def phase_path(card, shipped, sd, stable, data, profile):
     run["bf16_vs_f32"] = compare_runs(run, f32, data[1], cfg.threshold, 0.05,
                                       "zband path bf16 vs f32")
     return run
+
+
+def count_halo_calls(fn):
+    """fn()'s result and the number of ops/brick.halo calls it made."""
+    from sps_torch.ops import brick as bk
+
+    real, n = bk.halo, [0]
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return real(*args, **kwargs)
+
+    bk.halo = counted
+    try:
+        return fn(), n[0]
+    finally:
+        bk.halo = real
+
+
+def int8_path_bound(num_bricks, caps):
+    """gather_bound summed over a scan's ten int8 calls at the levels'
+    brick counts (B = the capacities)."""
+    return sum(gather_bound(caps[level], num_bricks[level], c, n)[2] * per_scan
+               for _, level, per_scan, c, n in INT8_CALLS)
 
 
 def phase_shipping(card, shipped, sd, stable, data, profile):
@@ -697,12 +888,18 @@ def phase_shipping(card, shipped, sd, stable, data, profile):
         f"{shipped.tpu.topo_every}")
     if not (scfg.unet.conv_mode == "halo" and scfg.unet.int8 and scfg.unet.head_fold):
         raise AssertionError("config/config.yaml is not the shipping configuration")
-    filt, run = drive(shipped, sd, stable, data)
+    (filt, run), halo_calls = count_halo_calls(lambda: drive(shipped, sd, stable, data))
     n_scans = len(data[0])
     run["p50"] = check_run(run, data[1], shipped.tpu.topo_every, card, "shipping path")
     check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
                          "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
-                         "brick_conv_int8": 10 * n_scans}, "shipping path")
+                         "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans},
+                   "shipping path")
+    levels = filt._topo_cache[0]
+    run["num_bricks"] = [int(lv.grid.num_bricks) for lv in levels[:3]]
+    log(f"  num_bricks at L0-L2 in the last rebuild (scan 8): {run['num_bricks']} of "
+        f"{list(scfg.caps.bricks[:3])} slots; bound of the ten int8 calls at these counts "
+        f"{int8_path_bound(run['num_bricks'], scfg.caps.bricks):.3f} ms")
     # A rebuild and a reuse scan with the inputs already on the card under
     # sync debug mode "error": a call that waits for the device raises.
     filt.invalidate()
@@ -721,7 +918,12 @@ def phase_shipping(card, shipped, sd, stable, data, profile):
         phase_profile(filt, data, card, "shipping path")
     del filt
     torch.cuda.empty_cache()
-    _, no_int8 = drive(twin(shipped, int8=False), sd, stable, data)
+    (_, no_int8), twin_halo_calls = count_halo_calls(
+        lambda: drive(twin(shipped, int8=False), sd, stable, data))
+    log(f"  halo() calls over {n_scans} scans: {halo_calls} (int8), {twin_halo_calls} "
+        f"(int8-off twin)")
+    if twin_halo_calls - halo_calls != 10 * n_scans:
+        raise AssertionError("shipping path: the int8 convs still assemble halos")
     _, f32 = drive(twin(shipped, int8=False, bf16=False), sd, stable, data)
     eps = shipped.threshold
     run["int8_vs_twin"] = compare_runs(run, no_int8, data[1], eps, 0.1,
@@ -854,6 +1056,7 @@ def main() -> int:
     scfg = shipped.sps_config(1)
     errs, per_call, k3_same_call = phase_kernels(card)
     int8_calls = phase_int8_kernel(card, scfg.caps.bricks)
+    gather_calls = phase_int8_gather(card, scfg.caps.bricks)
     phase_parity()
 
     n_scans = 10
@@ -898,19 +1101,36 @@ def main() -> int:
                    "gflop": k3["gflop_band"], "gbytes": k3["gbytes"],
                    "phase2_ms": k3_same_call["ms"], "phase2_wmma_ms": k3_same_call["wmma_ms"]}],
     })
-    # The ten int8 calls of a scan: per-scan sums of the per-call times.
-    per_scan = {k: sum(c[k] * c["calls_per_scan"] for c in int8_calls)
-                for k in ("ms", "plain_ms", "bound_ms", "conv3d_bf16_ms")}
+    # The ten int8 calls of a scan: per-scan sums of the per-call times. The
+    # shipping path runs the gather form; the halo form (the halo-tensor input
+    # contract, launched 0 times on the path) is timed beside it.
+    def scan_sums(calls, keys):
+        return {k: sum(c[k] * c["calls_per_scan"] for c in calls) for k in keys}
+
+    def bound_by(calls):
+        return max(("bytes", "operations"), key=lambda by: sum(
+            c["bound_ms"] * c["calls_per_scan"] for c in calls if c["bound_by"] == by))
+
+    g = scan_sums(gather_calls, ("ms", "plain_ms", "bound_ms", "halo_plus_halo_form_ms",
+                                 "halo_form_ms", "halo_conv3d_bf16_ms"))
+    h = scan_sums(int8_calls, ("ms", "plain_ms", "bound_ms", "conv3d_bf16_ms"))
     kernels.append({
-        "name": "brick_conv_int8", "route": "cuda",
-        "source": os.path.relpath(bi8.SOURCE, HERE), "replaces": REPLACES["brick_conv_int8"],
-        "launches": ship["launches"]["brick_conv_int8"], "max_abs_err": 0.0,
-        "ms": per_scan["ms"], "plain_ms": per_scan["plain_ms"],
-        "bound_ms": per_scan["bound_ms"], "bound_by": max(
-            ("bytes", "operations"), key=lambda by: sum(
-                c["bound_ms"] * c["calls_per_scan"] for c in int8_calls if c["bound_by"] == by)),
-        "library_ms": None,
-        "conv3d_bf16_ms": per_scan["conv3d_bf16_ms"], "calls": int8_calls,
+        "name": "brick_conv_int8_gather", "route": "cuda",
+        "source": os.path.relpath(bi8.SOURCE, HERE),
+        "replaces": REPLACES["brick_conv_int8_gather"],
+        "launches": ship["launches"]["brick_conv_int8_gather"], "max_abs_err": 0.0,
+        "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": bound_by(gather_calls), "library_ms": None,
+        "halo_plus_halo_form_ms": g["halo_plus_halo_form_ms"],
+        "halo_form_same_operands_ms": g["halo_form_ms"],
+        "halo_conv3d_bf16_ms": g["halo_conv3d_bf16_ms"],
+        "path_num_bricks": ship["num_bricks"], "calls": gather_calls,
+        "halo_form": {
+            "name": "brick_conv_int8", "source": os.path.relpath(bi8.SOURCE, HERE),
+            "replaces": REPLACES["brick_conv_int8"],
+            "launches": ship["launches"]["brick_conv_int8"], "ms": h["ms"],
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"], "bound_by": bound_by(int8_calls),
+            "library_ms": None, "conv3d_bf16_ms": h["conv3d_bf16_ms"], "calls": int8_calls},
     })
     log(f"paths [{card}]: zband p50 {zband['p50']:.2f} ms, peak {zband['peak'] / 2**30:.2f} GiB; "
         f"shipping p50 {ship['p50']:.2f} ms, peak {ship['peak'] / 2**30:.2f} GiB")

@@ -1,7 +1,10 @@
-// Int8 brick convolution for Hopper (sm_90a). The kernel has a plain C
-// entry point (sps_brick_conv_int8, below); zband_conv_op.cpp binds it to
-// PyTorch as torch.ops.sps_torch.brick_conv_int8 and
-// sps_torch/ops/brick_conv_int8.py builds and calls it.
+// Int8 brick convolution for Hopper (sm_90a). The kernel has two forms,
+// each with a plain C entry point (below): the gather form
+// (sps_brick_conv_int8_gather), which the shipping path runs, and the halo
+// form (sps_brick_conv_int8), which takes an assembled halo tensor.
+// zband_conv_op.cpp binds them to PyTorch as
+// torch.ops.sps_torch.brick_conv_int8_gather and brick_conv_int8, and
+// sps_torch/ops/brick_conv_int8.py builds and calls them.
 //
 // Replaces the int8 conv of sps_tpu/ops/brick.py::brick_conv_int8 (an XLA
 // int8 conv with int32 accumulation, lax.conv_general_dilated(...,
@@ -14,7 +17,13 @@
 //                        h8[b, x+kx, y+ky, z+kz, c] * w8[kx, ky, kz, c, n]
 //   out[b, x, y, z, n] = (float(acc) * scale[n])  as bf16 (round to nearest
 //                        even) or f32,
-// with scale = s_in * s_w the f32 product the caller formed. Every step is
+// with scale = s_in * s_w the f32 product the caller formed. The gather
+// form computes the same from the codes q8 (Bq, 8, 8, 8, C) and the
+// neighbour table nbr27 (27, B) (OFFS27 order, x slowest, -1 where
+// absent): h8[b] is brick b's halo, the 26 neighbours' border voxels
+// around the centre brick, zeros where a row is absent; and a slot whose
+// centre row is absent (the atlas's slots past num_bricks, all of whose
+// rows are -1) gives +0.0. Every step is
 // exact or one IEEE rounding (int32 -> f32, one multiply, one cast), so the
 // output is bit-equal to the plain version (brick_conv_int8_ref).
 // The kernel takes the weight transposed, wt (3, 3, 3, N, C): each output
@@ -24,7 +33,12 @@
 // operands and s32 accumulators. One block is one brick: M = its 512
 // output voxels, N the columns, K = 27 taps x C channels. The brick's
 // halo (1000 x C bytes) is staged in shared memory once with 16-byte
-// cp.async copies, each voxel's C bytes at a row stride S = C or C + 16
+// cp.async copies: in the gather form each piece straight from the codes
+// of the neighbour brick that nbr27 names (the block stages the brick's 27
+// rows first; an absent neighbour's pieces are zero-filled by the copy
+// itself, and a block whose centre row is absent stores zeros and
+// returns), in the halo form from the halo tensor; each voxel's C bytes
+// at a row stride S = C or C + 16
 // (S / 16 odd), so that the 8 rows of an ldmatrix land in 8 different
 // bank groups. Warp w computes output plane x = w: four m16 tiles
 // (y = 2i, 2i+1; z = 0..7). A tap's A rows are addressed per lane by
@@ -36,10 +50,11 @@
 // steps (m16n8k32) and, when C % 32 == 16, one k16 step (m16n8k16). The
 // epilogue dequantizes from the int32 registers and stores column pairs.
 //
-// What bounds it on this card: at the path's shapes the int8 halo read
-// and the output write (bytes over 3.35 TB/s) except at block6_0
-// (C = 96 and 64 -> 64), where the int8 operations over 1979 TOP/s
-// bound it. This first version uses mma.sync rather than wgmma, copies
+// What bounds it on this card: at the path's shapes the int8 input read
+// (the codes once in the gather form, the 1.95x larger halo tensor in the
+// halo form) and the output write (bytes over 3.35 TB/s), except at
+// block6_0 (C = 96 and 64 -> 64), where the int8 operations over
+// 1979 TOP/s bound it. The kernel uses mma.sync rather than wgmma, copies
 // each tap's weight into every block from L2 and overlaps a block's halo
 // copy with no math, so it stays below the bound.
 
@@ -70,6 +85,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(uint32_t s, const void* g) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(g));
+}
+// The same copy, zero-filling the 16 bytes instead when `pred` is false
+// (src-size 0: nothing is read from g, which must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(uint32_t s, const void* g, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(g),
+               "r"(pred ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait(bool last) {
@@ -126,9 +147,13 @@ __device__ __forceinline__ void load_weight(const int8_t* wt, uint32_t w_s, int 
   }
 }
 
+// GATHER: x8 is the codes q8 (Bq, 8, 8, 8, C) and nbr27 the (27, B)
+// neighbour table (row k of brick b at nbr27[k * B + b]); else x8 is the
+// halo tensor h8 (B, 10, 10, 10, C) and nbr27 is unused.
 // NT: n8 tiles a pass (2 when N = 16, else 4).
-template <int NT, typename OutT>
-__global__ void __launch_bounds__(THREADS) brick_int8_kernel(const int8_t* __restrict__ h8,
+template <bool GATHER, int NT, typename OutT>
+__global__ void __launch_bounds__(THREADS) brick_int8_kernel(const int8_t* __restrict__ x8,
+                                                             const int* __restrict__ nbr27,
                                                              const int8_t* __restrict__ wt,
                                                              const float* __restrict__ scale,
                                                              OutT* __restrict__ out, int C,
@@ -141,13 +166,43 @@ __global__ void __launch_bounds__(THREADS) brick_int8_kernel(const int8_t* __res
   const uint32_t w_s = halo_s + HALO_VOXELS * S;
   const int w_slot = NT * 8 * S;
 
-  // The brick's halo: piece i is 16-byte group q = i % (C/16) of voxel
-  // v = i / (C/16), the brick's i-th 16 bytes of h8.
+  // The brick's halo: piece i is 16-byte group q = i % (C/16) of halo
+  // voxel v = i / (C/16), v = (hx * 10 + hy) * 10 + hz.
   const int cg = C / 16;
-  const int8_t* src = h8 + b * HALO_VOXELS * C;
-  for (int i = tid; i < HALO_VOXELS * cg; i += THREADS) {
-    const int v = i / cg, q = i - v * cg;
-    cp_async16(halo_s + v * S + q * 16, src + i * 16);
+  if constexpr (GATHER) {
+    __shared__ int rows[TAPS];
+    if (tid < TAPS) rows[tid] = nbr27[tid * static_cast<long long>(gridDim.x) + b];
+    __syncthreads();
+    if (rows[TAPS / 2] < 0) {
+      // An empty slot (the same for the whole block): +0.0, as the plain
+      // version's 0.0f * scale gives; out is 16-byte aligned and a brick's
+      // 512 * N outputs fill whole 16-byte pieces.
+      int4* o = reinterpret_cast<int4*>(out + b * (BS * BS * BS) * N);
+      const int pieces = BS * BS * BS * N * static_cast<int>(sizeof(OutT)) / 16;
+      for (int i = tid; i < pieces; i += THREADS) o[i] = make_int4(0, 0, 0, 0);
+      return;
+    }
+    // On each axis, h = 0 is local 7 of neighbour -1, h = 1..8 local h - 1
+    // of the centre and h = 9 local 0 of neighbour +1: neighbour index
+    // (h + 7) / 8 in {0, 1, 2}, local (h + 7) % 8.
+    for (int i = tid; i < HALO_VOXELS * cg; i += THREADS) {
+      const int v = i / cg, q = i - v * cg;
+      const int hx = v / (H * H), hy = v / H - hx * H, hz = v - (v / H) * H;
+      const int ax = hx + BS - 1, ay = hy + BS - 1, az = hz + BS - 1;
+      const int r = rows[((ax / BS) * 3 + ay / BS) * 3 + az / BS];
+      const int8_t* src = x8;  // a valid address for the zero-fill
+      if (r >= 0)
+        src += ((((static_cast<long long>(r) * BS + ax % BS) * BS + ay % BS) * BS + az % BS) * C +
+                q * 16);
+      cp_async16_zfill(halo_s + v * S + q * 16, src, r >= 0);
+    }
+  } else {
+    // The brick's i-th 16 bytes of h8.
+    const int8_t* src = x8 + b * HALO_VOXELS * C;
+    for (int i = tid; i < HALO_VOXELS * cg; i += THREADS) {
+      const int v = i / cg, q = i - v * cg;
+      cp_async16(halo_s + v * S + q * 16, src + i * 16);
+    }
   }
 
   // Lane's A row for m16 tile i at tap (0, 0, 0): row r = lane % 16 of the
@@ -252,17 +307,36 @@ __global__ void __launch_bounds__(THREADS) brick_int8_kernel(const int8_t* __res
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int NT, typename OutT>
-int launch(const int8_t* h8, const int8_t* wt, const float* scale, void* out, long long batch,
-           int C, int N, cudaStream_t stream) {
+template <bool GATHER, int NT, typename OutT>
+int launch(const int8_t* x8, const int* nbr27, const int8_t* wt, const float* scale, void* out,
+           long long batch, int C, int N, cudaStream_t stream) {
   const int S = row_stride(C);
   const int smem = HALO_VOXELS * S + 2 * NT * 8 * S;
   const cudaError_t e = cudaFuncSetAttribute(
-      brick_int8_kernel<NT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      brick_int8_kernel<GATHER, NT, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  brick_int8_kernel<NT, OutT><<<static_cast<unsigned>(batch), THREADS, smem, stream>>>(
-      h8, wt, scale, static_cast<OutT*>(out), C, N);
+  brick_int8_kernel<GATHER, NT, OutT><<<static_cast<unsigned>(batch), THREADS, smem, stream>>>(
+      x8, nbr27, wt, scale, static_cast<OutT*>(out), C, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shape rule both forms share (-1 for a call they do not take), then
+// the launch on `batch` bricks.
+template <bool GATHER>
+int dispatch(const void* x8, const int* nbr27, const void* wt, const float* scale, void* out,
+             long long batch, int C, int N, int out_bf16, void* stream) {
+  if (C < 16 || C > C_MAX || C % 16 != 0 || !(N == 16 || (N > 0 && N % PASS_COLS == 0)))
+    return -1;
+  if (!aligned16(x8) || !aligned16(wt) || !aligned16(out)) return -1;
+  if (batch == 0) return 0;
+  const auto* x = static_cast<const int8_t*>(x8);
+  const auto* w = static_cast<const int8_t*>(wt);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (N == 16)
+    return out_bf16 ? launch<GATHER, 2, __nv_bfloat16>(x, nbr27, w, scale, out, batch, C, N, s)
+                    : launch<GATHER, 2, float>(x, nbr27, w, scale, out, batch, C, N, s);
+  return out_bf16 ? launch<GATHER, 4, __nv_bfloat16>(x, nbr27, w, scale, out, batch, C, N, s)
+                  : launch<GATHER, 4, float>(x, nbr27, w, scale, out, batch, C, N, s);
 }
 
 }  // namespace
@@ -274,16 +348,16 @@ int launch(const int8_t* h8, const int8_t* wt, const float* scale, void* out, lo
 // else the CUDA error of the launch (0 on success).
 extern "C" int sps_brick_conv_int8(const void* h8, const void* wt, const float* scale, void* out,
                                    long long batch, int C, int N, int out_bf16, void* stream) {
-  if (C < 16 || C > C_MAX || C % 16 != 0 || !(N == 16 || (N > 0 && N % PASS_COLS == 0)))
-    return -1;
-  if (!aligned16(h8) || !aligned16(wt) || !aligned16(out)) return -1;
-  if (batch == 0) return 0;
-  const auto* h = static_cast<const int8_t*>(h8);
-  const auto* w = static_cast<const int8_t*>(wt);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (N == 16)
-    return out_bf16 ? launch<2, __nv_bfloat16>(h, w, scale, out, batch, C, N, s)
-                    : launch<2, float>(h, w, scale, out, batch, C, N, s);
-  return out_bf16 ? launch<4, __nv_bfloat16>(h, w, scale, out, batch, C, N, s)
-                  : launch<4, float>(h, w, scale, out, batch, C, N, s);
+  return dispatch<false>(h8, nullptr, wt, scale, out, batch, C, N, out_bf16, stream);
+}
+
+// The gather form: q8 (Bq, 8, 8, 8, C) int8 and nbr27 (27, batch) int32,
+// both contiguous, every row -1 or in [0, Bq) (the caller's guarantee: the
+// kernel reads row r's codes unchecked); wt, scale and out as above, one
+// output brick per column of nbr27. Returns -1 for a shape it does not
+// take (the same rule), else the CUDA error of the launch.
+extern "C" int sps_brick_conv_int8_gather(const void* q8, const int* nbr27, const void* wt,
+                                          const float* scale, void* out, long long batch, int C,
+                                          int N, int out_bf16, void* stream) {
+  return dispatch<true>(q8, nbr27, wt, scale, out, batch, C, N, out_bf16, stream);
 }

@@ -1,9 +1,10 @@
 // PyTorch binding of the port's CUDA kernels: the z-band kernels in
 // zband_conv.cu (route 0, WMMA), zband_conv_sm90.cu (route 1, wgmma at
 // k = 3) and zband_conv_k5_sm90.cu (route 2, wgmma at the k = 5 stem,
-// unfused only), and the int8 brick conv in brick_conv_int8.cu: registers
-// torch.ops.sps_torch.zband_conv, zband_conv_fused and brick_conv_int8
-// for CUDA tensors. The kernel files
+// unfused only), and the int8 brick conv in brick_conv_int8.cu (its gather
+// and halo forms): registers torch.ops.sps_torch.zband_conv,
+// zband_conv_fused, brick_conv_int8_gather and brick_conv_int8 for CUDA
+// tensors. The kernel files
 // have plain C entry points and no PyTorch headers; this file includes only
 // the operator registry and one ATen operator, so all build in seconds
 // (sps_torch/ops/zband_conv.py).
@@ -29,6 +30,9 @@ extern "C" int sps_zband_conv_k5_sm90(const void* hz, const void* wz, void* out,
                                       int k, int bs, int C, int N, void* stream);
 extern "C" int sps_brick_conv_int8(const void* h8, const void* wt, const float* scale, void* out,
                                    long long batch, int C, int N, int out_bf16, void* stream);
+extern "C" int sps_brick_conv_int8_gather(const void* q8, const int* nbr27, const void* wt,
+                                          const float* scale, void* out, long long batch, int C,
+                                          int N, int out_bf16, void* stream);
 
 namespace {
 
@@ -146,6 +150,43 @@ at::Tensor brick_conv_int8(const at::Tensor& h8, const at::Tensor& wt, const at:
   return out;
 }
 
+// q8 (Bq, 8, 8, 8, C) int8 codes, nbr27 (27, B) int32 neighbour rows (-1
+// where absent; every row below Bq, unchecked: checking would wait for the
+// device), wt (3, 3, 3, N, C) int8, scale (N,) f32; returns
+// (B, 8, 8, 8, N) in bf16 or f32. A shape the kernel does not take raises.
+at::Tensor brick_conv_int8_gather(const at::Tensor& q8, const at::Tensor& nbr27,
+                                  const at::Tensor& wt, const at::Tensor& scale, bool out_bf16,
+                                  int64_t stream) {
+  TORCH_CHECK(q8.is_cuda(), "brick_conv_int8_gather takes CUDA tensors");
+  TORCH_CHECK(q8.scalar_type() == at::kChar && wt.scalar_type() == at::kChar,
+              "q8 and wt must be int8");
+  TORCH_CHECK(nbr27.scalar_type() == at::kInt, "nbr27 must be int32");
+  TORCH_CHECK(q8.dim() == 5 && q8.size(1) == 8 && q8.size(2) == 8 && q8.size(3) == 8,
+              "q8 must be (Bq, 8, 8, 8, C)");
+  TORCH_CHECK(nbr27.dim() == 2 && nbr27.size(0) == 27, "nbr27 must be (27, B)");
+  const int64_t b = nbr27.size(1), c = q8.size(4);
+  TORCH_CHECK(wt.dim() == 5 && wt.size(0) == 3 && wt.size(1) == 3 && wt.size(2) == 3 &&
+                  wt.size(4) == c,
+              "wt must be (3, 3, 3, N, C)");
+  const int64_t n = wt.size(3);
+  check_operand(q8, q8, "q8");
+  check_operand(nbr27, q8, "nbr27");
+  check_operand(wt, q8, "wt");
+  check_operand(scale, q8, "scale");
+  TORCH_CHECK(scale.scalar_type() == at::kFloat && scale.dim() == 1 && scale.size(0) == n,
+              "scale must be f32 (N,)");
+  at::Tensor out =
+      at::empty({b, 8, 8, 8, n}, q8.options().dtype(out_bf16 ? at::kBFloat16 : at::kFloat));
+  const int err = sps_brick_conv_int8_gather(
+      q8.data_ptr(), nbr27.data_ptr<int>(), wt.data_ptr(), scale.data_ptr<float>(),
+      out.data_ptr(), b, static_cast<int>(c), static_cast<int>(n), out_bf16 ? 1 : 0,
+      reinterpret_cast<void*>(stream));
+  TORCH_CHECK(err != -1, "brick_conv_int8_gather does not take this call: it needs C % 16 == 0 ",
+              "with 16 <= C <= 128, N == 16 or N % 32 == 0, and 16-byte aligned operands");
+  TORCH_CHECK(err == 0, "brick_conv_int8_gather launch failed: cudaError ", err);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(sps_torch, m) {
@@ -154,10 +195,14 @@ TORCH_LIBRARY(sps_torch, m) {
       "zband_conv_fused(Tensor hz, Tensor wz, Tensor scale, Tensor bias, Tensor occ, "
       "Tensor? res, int k, int bs, bool relu, int route, int stream) -> Tensor");
   m.def("brick_conv_int8(Tensor h8, Tensor wt, Tensor scale, bool out_bf16, int stream) -> Tensor");
+  m.def(
+      "brick_conv_int8_gather(Tensor q8, Tensor nbr27, Tensor wt, Tensor scale, bool out_bf16, "
+      "int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(sps_torch, CUDA, m) {
   m.impl("zband_conv", &zband_conv);
   m.impl("zband_conv_fused", &zband_conv_fused);
   m.impl("brick_conv_int8", &brick_conv_int8);
+  m.impl("brick_conv_int8_gather", &brick_conv_int8_gather);
 }

@@ -237,17 +237,16 @@ def quantize_weight(w_dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def brick_conv_int8(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
     """Stride-1 sparse 3^3 conv with int8 math (inference; sps_tpu's
     brick_conv_int8): quantize the activations per tensor and the weight
-    per output channel, assemble the halo of the int8 codes (so that the
-    gathers move int8), run the int8 conv with int32 sums (the
-    brick_conv_int8 kernel) and dequantize by s_in * s_w into feats.dtype.
+    per output channel, run the int8 conv with int32 sums on the codes,
+    each brick's halo gathered through nbr27 inside the kernel (the gather
+    form of the brick_conv_int8 kernel), and dequantize by s_in * s_w into
+    feats.dtype.
 
     feats (B, bs, bs, bs, TCin); w_dense (3, 3, 3, TCin, TCout), quantized
     from its f32 values."""
-    k = w_dense.shape[0]
     q, s_in = quantize_act(feats)
-    h = halo(q, nbr27, k // 2)
     w8, s_w = quantize_weight(w_dense)
-    out = bi8.brick_conv_int8(h, w8, s_in * s_w, feats.dtype)
+    out = bi8.brick_conv_int8_gather(q, nbr27, w8, s_in * s_w, feats.dtype)
     return mask_bricks(out, occ) if mask_out else out
 
 

@@ -1,21 +1,28 @@
-"""Int8 brick conv: a hand-written CUDA kernel and its plain version.
+"""Int8 brick conv: a hand-written CUDA kernel in two forms and their plain
+versions.
 
 The conv of sps_tpu/ops/brick.py::brick_conv_int8 after quantization (an
 XLA int8 conv with int32 sums there): the VALID 3x3x3 conv of the int8
 halo h8 (B, 10, 10, 10, C) by the int8 weight w8 (3, 3, 3, C, N), summed in
 int32, dequantized as `(float(acc) * scale).to(out_dtype)` with scale =
-s_in * s_w an f32 (N,) vector. ops/brick.py quantizes and assembles the
-halo around it.
+s_in * s_w an f32 (N,) vector. ops/brick.py quantizes around it.
 
-On a CUDA tensor `brick_conv_int8` launches sps_torch/csrc/brick_conv_int8.cu
-through torch.ops.sps_torch.brick_conv_int8 (built with the z-band kernels
-by ops/zband_conv.build into build/torch_ext/), or raises: a shape outside
+The gather form, `brick_conv_int8_gather`, takes the codes q8
+(Bq, 8, 8, 8, C) and the neighbour table nbr27 (27, B) and gathers each
+brick's halo inside the kernel; the shipping path runs it. The halo form,
+`brick_conv_int8`, takes an assembled halo tensor.
+
+On a CUDA tensor each form launches sps_torch/csrc/brick_conv_int8.cu
+through its op (torch.ops.sps_torch.brick_conv_int8_gather /
+brick_conv_int8, built with the z-band kernels by ops/zband_conv.build
+into build/torch_ext/), or raises: a shape outside `takes_gather` /
 `takes` never falls back. On a CPU tensor it computes the plain version,
 which the tests and chip_smoke.py also hold the kernel against bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -23,16 +30,19 @@ from sps_torch.ops import zband_conv as zc
 
 SOURCE = zc.CSRC / "brick_conv_int8.cu"
 
-# One count per kernel launch, incremented only where the kernel launches.
+# One count per kernel launch, incremented only where the kernel launches:
+# the halo form's and, in a dict of its own, the gather form's.
 LAUNCHES = {"brick_conv_int8": 0}
+GATHER_LAUNCHES = {"brick_conv_int8_gather": 0}
 
 # The kernel's tile (brick_conv_int8.cu): threads a block (one brick), the
-# largest C, columns a pass, halo side.
-THREADS, C_MAX, PASS_COLS, H = 256, 128, 32, 10
+# largest C, columns a pass, brick side, halo side.
+THREADS, C_MAX, PASS_COLS, BS, H = 256, 128, 32, 8, 10
 
 
 def reset_launches() -> None:
     LAUNCHES["brick_conv_int8"] = 0
+    GATHER_LAUNCHES["brick_conv_int8_gather"] = 0
 
 
 def takes(h_shape, w_shape) -> bool:
@@ -47,6 +57,17 @@ def takes(h_shape, w_shape) -> bool:
         return False
     c, n = h_shape[4], w_shape[4]
     return c % 16 == 0 and 16 <= c <= C_MAX and (n == 16 or (n > 0 and n % PASS_COLS == 0))
+
+
+def takes_gather(q_shape, nbr_shape, w_shape) -> bool:
+    """Whether the gather form takes a call, from its shapes alone: q8
+    (Bq, 8, 8, 8, C), nbr27 (27, B) and w8 under `takes`'s rule for a halo
+    of B bricks."""
+    if len(q_shape) != 5 or tuple(q_shape[1:4]) != (BS, BS, BS):
+        return False
+    if len(nbr_shape) != 2 or nbr_shape[0] != 27:
+        return False
+    return takes((nbr_shape[1], H, H, H, q_shape[4]), w_shape)
 
 
 def row_stride(c: int) -> int:
@@ -72,6 +93,30 @@ def halo_piece(i: int, c: int) -> tuple[int, int]:
     the halo's 16-byte copy i: group i % (C/16) of voxel i / (C/16)."""
     v, q = divmod(i, c // 16)
     return 16 * i, v * row_stride(c) + 16 * q
+
+
+def _axis(h: int) -> tuple[int, int]:
+    """Halo coordinate h on one axis -> (neighbour index 0, 1, 2 for
+    offset -1, 0, +1; local coordinate in that brick): h = 0 is local 7 of
+    neighbour -1, h = 1..8 local h - 1 of the centre, h = 9 local 0 of
+    neighbour +1."""
+    return divmod(h + BS - 1, BS)
+
+
+def gather_piece(i: int, rows27, c: int) -> tuple[int | None, int]:
+    """(byte offset into q8, or None where nothing is read; byte offset into
+    shared memory) of the gather form's 16-byte copy i for a brick whose 27
+    neighbour rows (OFFS27 order) are rows27: group i % (C/16) of halo voxel
+    v = i / (C/16) = (hx * 10 + hy) * 10 + hz. None where that neighbour's
+    row is -1 (the copy zero-fills) and for every piece of a brick whose
+    centre row is -1 (its block stores zeros and copies nothing)."""
+    v, q = divmod(i, c // 16)
+    dst = v * row_stride(c) + 16 * q
+    (nx, lx), (ny, ly), (nz, lz) = (_axis(h) for h in (v // (H * H), v // H % H, v % H))
+    r = int(rows27[(nx * 3 + ny) * 3 + nz])
+    if r < 0 or int(rows27[13]) < 0:
+        return None, dst
+    return (((r * BS + lx) * BS + ly) * BS + lz) * c + 16 * q, dst
 
 
 def weight_piece(i: int, tap: int, n0: int, c: int, n: int) -> tuple[int, int]:
@@ -112,6 +157,84 @@ def brick_conv_int8_ref(h8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
     acc = F.conv3d(h8.double().permute(0, 4, 1, 2, 3), w8.double().permute(4, 3, 0, 1, 2))
     acc = acc.permute(0, 2, 3, 4, 1).round().to(torch.int32)
     return (acc.float() * scale).to(out_dtype)
+
+
+_GATHER_MAPS: dict = {}
+
+
+def _gather_map(bs: int, device):
+    """For a brick side bs: the OFFS27 index of the neighbour that holds
+    each voxel of the (bs+2)^3 halo and the voxel within that neighbour,
+    two ((bs+2)^3,) tables uploaded once per device."""
+    key = (bs, str(device))
+    if key not in _GATHER_MAPS:
+        h = bs + 2
+        n, loc = divmod(np.arange(h) + bs - 1, bs)
+        x, y, z = np.meshgrid(np.arange(h), np.arange(h), np.arange(h), indexing="ij")
+        k = (n[x] * 3 + n[y]) * 3 + n[z]
+        vox = (loc[x] * bs + loc[y]) * bs + loc[z]
+        _GATHER_MAPS[key] = tuple(torch.as_tensor(a.reshape(-1), dtype=torch.long, device=device)
+                                  for a in (k, vox))
+    return _GATHER_MAPS[key]
+
+
+def halo_gather_ref(q8: torch.Tensor, nbr27: torch.Tensor) -> torch.Tensor:
+    """Plain halo of the codes: (Bq, bs, bs, bs, C) through (27, B) rows ->
+    (B, bs+2, bs+2, bs+2, C), zeros where a row is -1 (ops/brick.halo's
+    function at pad 1, written here because ops/brick.py imports this
+    module)."""
+    bq, bs, c = q8.shape[0], q8.shape[1], q8.shape[-1]
+    k, vox = _gather_map(bs, q8.device)
+    rows = nbr27.long()[k]  # ((bs+2)^3, B)
+    flat = torch.where(rows >= 0, rows * bs**3 + vox[:, None], bq * bs**3)
+    src = torch.cat([q8.reshape(-1, c), q8.new_zeros((1, c))])
+    return src[flat.t()].reshape((-1,) + (bs + 2,) * 3 + (c,))
+
+
+def brick_conv_int8_gather_ref(q8: torch.Tensor, nbr27: torch.Tensor, w8: torch.Tensor,
+                               scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of the gather form: the halo conv of halo_gather_ref,
+    and +0.0 for a brick whose centre row is -1, as the kernel gives."""
+    out = brick_conv_int8_ref(halo_gather_ref(q8, nbr27), w8, scale, out_dtype)
+    return out.masked_fill((nbr27[13] < 0).view(-1, 1, 1, 1, 1), 0.0)
+
+
+def brick_conv_int8_gather(q8: torch.Tensor, nbr27: torch.Tensor, w8: torch.Tensor,
+                           scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """q8 (Bq, 8, 8, 8, C) int8 codes, nbr27 (27, B) int32 neighbour rows
+    (OFFS27 order, -1 where absent), w8 (3, 3, 3, C, N) int8, scale (N,) f32
+    -> (B, 8, 8, 8, N) in out_dtype (bf16 or f32) (the plain version also
+    takes other brick sides and integer dtypes): brick b's output is the
+    halo form's on the halo that nbr27[:, b] gathers from q8, and zeros
+    where nbr27[13, b] is -1.
+
+    The rows must lie in [-1, Bq), as the atlas's tables do: the kernel
+    reads a row's codes unchecked, and checking the values would wait for
+    the device, so only the shapes are checked. q8 and nbr27 must be
+    contiguous and nbr27 int32: the wrapper never copies or casts them. The
+    weight is read transposed, as by `brick_conv_int8`."""
+    if q8.device.type == "cpu":
+        return brick_conv_int8_gather_ref(q8, nbr27, w8, scale, out_dtype)
+    if q8.device.type != "cuda":
+        raise ValueError(f"brick_conv_int8_gather: the kernel takes CUDA tensors, got {q8.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"brick_conv_int8_gather: output dtype {out_dtype} (bf16 or f32 only)")
+    if q8.dtype != torch.int8 or nbr27.dtype != torch.int32:
+        raise ValueError(f"brick_conv_int8_gather: q8 {q8.dtype}, nbr27 {nbr27.dtype} "
+                         "(int8 and int32 only)")
+    if not (q8.is_contiguous() and nbr27.is_contiguous()):
+        raise ValueError("brick_conv_int8_gather: q8 and nbr27 must be contiguous")
+    if not takes_gather(q8.shape, nbr27.shape, w8.shape):
+        raise ValueError(f"brick_conv_int8_gather: the kernel does not take q8 "
+                         f"{tuple(q8.shape)}, nbr27 {tuple(nbr27.shape)}, w8 {tuple(w8.shape)}")
+    zc.build()
+    wt = w8.transpose(-1, -2).contiguous()
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.ops.sps_torch.brick_conv_int8_gather(q8, nbr27, wt, scale,
+                                                         out_dtype == torch.bfloat16, stream)
+    GATHER_LAUNCHES["brick_conv_int8_gather"] += 1
+    return out
 
 
 def brick_conv_int8(h8: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
