@@ -7,7 +7,8 @@ Phases, each of which raises (and exits non-zero) on failure:
   1. build  - compile the CUDA kernels from sps_torch/csrc with nvcc, one
               process per source, all at once (into build/torch_ext/), load
               them and print ptxas's registers, spills and wgmma
-              serialization notes per kernel;
+              serialization notes per kernel (the int8 gather form must
+              show at most 128 registers, no spill and no C75xx note);
   2. kernels - hold each kernel against its plain PyTorch version on the
               card, at small shapes, at ragged shapes of the wgmma route
               (zband_conv_sm90.cu: B 1, 3, 5; TCin 16, 32; N 128, 256; with
@@ -33,11 +34,14 @@ Phases, each of which raises (and exits non-zero) on failure:
               with nbr27 from a synthetic brick grid (~35% of neighbours
               absent, ~10% of the slots past num_bricks), at ragged
               B = 1, 3, 5, with every neighbour absent, with every slot
-              empty and on +-127 codes; wrapper and op must raise on what
-              they refuse; each full shape timed (gather form, the halo()
-              assembly plus the halo form, the halo form alone, and the
-              int8-off path's bf16 halo() plus F.conv3d, all on the same
-              codes and table) beside its bound;
+              empty and on +-127 codes, and, for its persistent blocks,
+              at B = 1001 (no multiple of the grid), B = 100 (below the
+              grid) and B = 600 with every slot empty; wrapper and op
+              must raise on what they refuse; each full shape timed
+              (gather form, the halo() assembly plus the halo form, the
+              halo form alone, and the int8-off path's bf16 halo() plus
+              F.conv3d, all on the same codes and table) beside its
+              bound;
   3. parity - the port's streaming filter on the card against the same
               filter on the CPU (the path the CPU tests hold against
               sps_tpu), f32, small config, full MinkUNet14 width: the
@@ -480,32 +484,14 @@ def phase_int8_kernel(card, bricks):
     return calls
 
 
-def grid_table(b, num_bricks, rng, fill=0.7):
-    """A (27, b) int32 neighbour table of a synthetic brick grid:
-    num_bricks bricks at random cells of a cube of ~num_bricks / fill
-    cells, rows in cell order (as the atlas numbers them), OFFS27 order;
-    the slots past num_bricks are empty (all rows -1)."""
-    from sps_torch.ops import brick as bk
-
-    side = max(1, round((num_bricks / fill) ** (1 / 3)))
-    while side**3 < num_bricks:
-        side += 1
-    cells = np.sort(rng.choice(side**3, num_bricks, replace=False))
-    lut = np.full((side + 2,) * 3, -1, np.int32)
-    x, y, z = (a + 1 for a in np.unravel_index(cells, (side,) * 3))
-    lut[x, y, z] = np.arange(num_bricks)
-    nbr = np.full((27, b), -1, np.int32)
-    for k, (dx, dy, dz) in enumerate(bk.OFFS27):
-        nbr[k, :num_bricks] = lut[x + dx, y + dy, z + dz]
-    return nbr
-
-
 def gather_case(b, num_bricks, c, n, seed, kind="rand"):
     """Seeded operands of the gather form: codes (b, 8, 8, 8, C) (zero past
     num_bricks, as the masked features are), a grid_table, and the weight
     and scale of int8_case. kind "allabsent": every neighbour row -1 but
     the centre; "pm127": int8_case's +-127 codes and 5%-flipped signs."""
     import torch
+
+    from sps_torch.scripts.int8_variants import grid_table
 
     rng = np.random.default_rng(seed)
     nbr = grid_table(b, num_bricks, rng)
@@ -535,17 +521,6 @@ def check_gather(q8, nbr, w8, scale, tag):
             raise AssertionError(f"brick_conv_int8_gather {tag} {dtype}: kernel differs from plain")
 
 
-def gather_bound(b, present, c, n):
-    """(operations, bytes, bound ms, bound_by) of a gather-form call: the
-    codes of the bricks with a centre row read once, the weight, scale and
-    table, the bf16 output of all b slots written once; the int8 products
-    of the present bricks."""
-    ops = 2 * present * 512 * 27 * c * n
-    nbytes = present * 512 * c + 27 * c * n + 4 * n + 27 * b * 4 + b * 512 * n * 2
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
-    return ops, nbytes, max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
 def phase_int8_gather(card, bricks):
     """Phase 2b, third part: the gather form of brick_conv_int8.cu against
     its plain version, and its time beside the halo form's on the same
@@ -555,12 +530,16 @@ def phase_int8_gather(card, bricks):
 
     from sps_torch.ops import brick as bk
     from sps_torch.ops import brick_conv_int8 as bi8
+    from sps_torch.scripts.int8_variants import gather_bound
 
     log("phase 2b: int8 brick conv, gather form, vs its plain version, bit for bit")
+    # The last three: B not a multiple of any grid (132 x blocks an SM), B
+    # smaller than the grid, and every slot of a large B empty.
     for i, (b, nb, c, n, kind) in enumerate([
             (1, 1, 16, 16, "rand"), (3, 2, 48, 32, "rand"), (5, 4, 96, 64, "rand"),
             (5, 5, 32, 16, "allabsent"), (3, 0, 32, 32, "rand"), (5, 4, 96, 64, "pm127"),
-            (3, 3, 64, 64, "pm127")]):
+            (3, 3, 64, 64, "pm127"), (1001, 900, 32, 16, "rand"), (100, 90, 96, 64, "rand"),
+            (600, 0, 16, 32, "rand")]):
         check_gather(*gather_case(b, nb, c, n, seed=400 + i, kind=kind),
                      f"ragged B={b} num_bricks={nb} C={c} N={n} {kind}")
     q8, nbr, w8, scale = gather_case(4, 3, 32, 16, seed=0)
@@ -872,6 +851,8 @@ def count_halo_calls(fn):
 def int8_path_bound(num_bricks, caps):
     """gather_bound summed over a scan's ten int8 calls at the levels'
     brick counts (B = the capacities)."""
+    from sps_torch.scripts.int8_variants import gather_bound
+
     return sum(gather_bound(caps[level], num_bricks[level], c, n)[2] * per_scan
                for _, level, per_scan, c, n in INT8_CALLS)
 
@@ -1019,6 +1000,10 @@ def phase_profile(filt, data, card, label, n=8):
         log(f"  range {e.key:24s} x{e.count:2d}  host {e.cpu_time_total / 1e3:9.3f} ms  "
             f"kernels {_incl_device_us(e) / 1e3:9.3f} ms  device span "
             f"{spans.get(e.key, 0.0) / 1e3:9.3f} ms")
+    int8 = [e for e in kernels if "brick_int8" in e.key]
+    log(f"  int8 conv kernels (brick_int8*): {sum(_device_us(e) for e in int8) / n / 1e3:.3f} ms "
+        f"per scan, {sum(e.count for e in int8) / n:.0f} launches per scan, "
+        f"{len(int8)} instances")
     for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
         log(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d}  {e.key[:100]}")
 
@@ -1041,14 +1026,22 @@ def main() -> int:
     zc.build()
     log(f"  built/loaded {', '.join(os.path.relpath(p, HERE) for p in zc.SOURCES)} "
         f"in {time.time() - t0:.1f} s")
+    kernel = None
     for line in zc.build_log.splitlines():
-        entry = re.search(r"entry function '\S*?\d((?:zband_\w*?|brick_int8_)kernel)"
+        entry = re.search(r"entry function '\S*?\d((?:zband_\w*?|brick_int8_\w*?)kernel)"
                           r"(?:I(\w*?)EEv)?", line)
         if entry:
-            log(f"  ptxas: {entry.group(1)}" + (f"<{entry.group(2)}>" if entry.group(2) else ""))
+            kernel = entry.group(1)
+            log(f"  ptxas: {kernel}" + (f"<{entry.group(2)}>" if entry.group(2) else ""))
         elif "registers" in line or "spill" in line or "(C75" in line:
             # C75xx: ptxas serialized wgmma or injected waits (a slow kernel)
             log(f"  ptxas:   {line.strip()}")
+            # The int8 gather form: at most 128 registers, no spill, no C75xx note.
+            regs = re.search(r"Used (\d+) registers", line)
+            if kernel == "brick_int8_gather_kernel" and (
+                    "(C75" in line or (regs and int(regs.group(1)) > 128)
+                    or re.search(r"[1-9]\d* bytes spill", line)):
+                raise AssertionError(f"ptxas: {kernel} {line.strip()}")
     card = card_line()
     log(f"  card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 

@@ -35,9 +35,12 @@ SOURCE = zc.CSRC / "brick_conv_int8.cu"
 LAUNCHES = {"brick_conv_int8": 0}
 GATHER_LAUNCHES = {"brick_conv_int8_gather": 0}
 
-# The kernel's tile (brick_conv_int8.cu): threads a block (one brick), the
-# largest C, columns a pass, brick side, halo side.
+# The kernel's tile (brick_conv_int8.cu): threads a block, the largest C,
+# columns a pass, brick side, halo side; a block's shared memory limit and
+# the gather form's static shared memory (two slots of 27 staged rows).
 THREADS, C_MAX, PASS_COLS, BS, H = 256, 128, 32, 8, 10
+SMEM_LIMIT, ROWS_BYTES = 232448, 2 * 27 * 4
+SM_SMEM = 233472  # an SM's shared memory, 1 KB of it reserved per block
 
 
 def reset_launches() -> None:
@@ -88,6 +91,75 @@ def smem_plan(c: int, n: int) -> dict[str, int]:
                 passes=n // cols, smem_bytes=halo + 2 * slot)
 
 
+def blocks_fit(smem: int) -> int:
+    """Blocks of `smem` dynamic shared bytes that one SM holds."""
+    return SM_SMEM // (smem + ROWS_BYTES + 1024)
+
+
+def gather_plan(c: int, n: int) -> dict[str, int]:
+    """The gather form's shared memory in bytes (brick_conv_int8.cu's
+    gather_plan): `bufs` halo buffers, then the 27 taps of one pass's
+    columns. A pass is 32 columns (16 when n = 16, or when 32 do not fit
+    beside one buffer). Two buffers (the next brick's copy overlaps the
+    brick's math in the block) where two such blocks fit on an SM or one
+    buffer would fit no more blocks; else one buffer (the next brick's
+    copy waits for the brick's math; the SM's other blocks compute)."""
+    s = row_stride(c)
+    halo = H**3 * s
+    cols = 16 if n == 16 or halo + 27 * PASS_COLS * s + ROWS_BYTES > SMEM_LIMIT else PASS_COLS
+    weight = 27 * cols * s
+    one, two = halo + weight, 2 * halo + weight
+    bufs = 2 if (two + ROWS_BYTES <= SMEM_LIMIT
+                 and (blocks_fit(two) >= 2 or blocks_fit(two) >= blocks_fit(one))) else 1
+    return dict(stride=s, halo_bytes=halo, pass_cols=cols, passes=n // cols,
+                weight_bytes=weight, bufs=bufs, smem_bytes=bufs * halo + weight)
+
+
+def block_bricks(block: int, grid: int, b: int) -> range:
+    """The bricks (columns of nbr27) that block `block` of a grid of `grid`
+    persistent blocks walks in the gather form, in order."""
+    return range(block, b, grid)
+
+
+def gather_events(block: int, grid: int, centre, bufs: int, passes: int = 1) -> list[tuple]:
+    """The gather form's steps for one block, in the kernel's order, for
+    the centre rows `centre` (nbr27[13]): ("weight", pass) the pass's
+    weight copy; ("barrier",); ("wait",) the thread's copies landed;
+    ("gather", brick, buffer) a brick's halo copy issued; ("math", brick,
+    buffer, pass) its taps multiplied (its outputs are stored after the
+    steps listed with it); ("zero", brick) an empty slot's +0.0 stored. A
+    block past the last brick does nothing."""
+    b = len(centre)
+    bricks = block_bricks(block, grid, b)
+    ev: list[tuple] = []
+    if not bricks:
+        return ev
+    for p in range(passes):
+        if p:
+            ev.append(("barrier",))
+        ev.append(("weight", p))
+        ev.append(("barrier",))  # the first brick's rows staged
+        if centre[bricks[0]] >= 0:
+            ev.append(("gather", bricks[0], 0))
+        for it, brick in enumerate(bricks):
+            cur, nxt = (it % 2, (it + 1) % 2) if bufs == 2 else (0, 0)
+            bn = brick + grid
+            busy = centre[brick] >= 0
+            following = bn < b and centre[bn] >= 0
+            ev += [("wait",), ("barrier",)]
+            if following and (bufs == 2 or not busy):
+                ev.append(("gather", bn, nxt))
+            if busy:
+                ev.append(("math", brick, cur, p))
+                if bufs == 1:
+                    ev.append(("barrier",))
+                    if following:
+                        ev.append(("gather", bn, nxt))
+            elif p == 0:
+                ev.append(("zero", brick))
+    return ev
+
+
 def halo_piece(i: int, c: int) -> tuple[int, int]:
     """(byte offset into the brick's h8, byte offset into shared memory) of
     the halo's 16-byte copy i: group i % (C/16) of voxel i / (C/16)."""
@@ -103,15 +175,16 @@ def _axis(h: int) -> tuple[int, int]:
     return divmod(h + BS - 1, BS)
 
 
-def gather_piece(i: int, rows27, c: int) -> tuple[int | None, int]:
+def gather_piece(i: int, rows27, c: int, buf: int = 0) -> tuple[int | None, int]:
     """(byte offset into q8, or None where nothing is read; byte offset into
-    shared memory) of the gather form's 16-byte copy i for a brick whose 27
-    neighbour rows (OFFS27 order) are rows27: group i % (C/16) of halo voxel
-    v = i / (C/16) = (hx * 10 + hy) * 10 + hz. None where that neighbour's
-    row is -1 (the copy zero-fills) and for every piece of a brick whose
-    centre row is -1 (its block stores zeros and copies nothing)."""
+    shared memory) of the gather form's 16-byte copy i into halo buffer
+    `buf` for a brick whose 27 neighbour rows (OFFS27 order) are rows27:
+    group i % (C/16) of halo voxel v = i / (C/16) = (hx * 10 + hy) * 10 +
+    hz. None where that neighbour's row is -1 (the copy zero-fills) and for
+    every piece of a brick whose centre row is -1 (its block stores zeros
+    and copies nothing)."""
     v, q = divmod(i, c // 16)
-    dst = v * row_stride(c) + 16 * q
+    dst = (buf * H**3 + v) * row_stride(c) + 16 * q
     (nx, lx), (ny, ly), (nz, lz) = (_axis(h) for h in (v // (H * H), v // H % H, v % H))
     r = int(rows27[(nx * 3 + ny) * 3 + nz])
     if r < 0 or int(rows27[13]) < 0:
@@ -125,6 +198,17 @@ def weight_piece(i: int, tap: int, n0: int, c: int, n: int) -> tuple[int, int]:
     n0 + i / (C/16)."""
     r, q = divmod(i, c // 16)
     return (tap * n + n0 + r) * c + 16 * q, r * row_stride(c) + 16 * q
+
+
+def resident_weight_piece(i: int, n0: int, c: int, n: int) -> tuple[int, int]:
+    """(byte offset into wt (27, N, C), byte offset from the gather form's
+    weight region) of copy i of the pass starting at column n0, all 27
+    taps: group i % (C/16) of row r = i / (C/16) = tap * cols + column, at
+    r * row_stride(c); tap t's slot starts at t * cols * row_stride(c)."""
+    cols = gather_plan(c, n)["pass_cols"]
+    r, q = divmod(i, c // 16)
+    tap, col = divmod(r, cols)
+    return (tap * n + n0 + col) * c + 16 * q, r * row_stride(c) + 16 * q
 
 
 def a_row(warp: int, lane: int, i: int, tap: int, c: int) -> int:
