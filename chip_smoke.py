@@ -71,6 +71,23 @@ Phases, each of which raises (and exits non-zero) on failure:
               sync (sync debug mode "error"); then its int8-off twin
               (bound 0.1 on |dscore| against it) and that twin in f32
               (bound 0.05 against the twin).
+  7. loop   - the localization loop on the shipping path (phase_loop):
+              LocalizationLoop at config/config.yaml as shipped with the
+              same weights and scans (their truth is the identity), refine
+              on, then off; the first two calls seeded with prior=, the
+              reuse calls under sync debug mode "error"; 10 launches of the
+              int8 gather form a filter pass; pose error < 0.05 m; p50,
+              peak memory, and a profile of 8 scans (kernel time and
+              launches a scan, filter / ICP split by the sps.loop.* ranges);
+  8. trained - trained localization (phase_trained): the movers sequences
+              generated by the port, ckpt_loc_movers_v2 from
+              sps_torch/assets/ckpt_loc_movers_v2.npz under
+              config_loc_movers_v2.yaml at epsilon 0.99, run_localization
+              with raw, sps and oracle (prior odom, init_noise 0.05,
+              refine) on 20220629 and 20220629_clean, held against
+              sps_tpu's pin (sps_torch/assets/loc_movers_v2_pin.npz): each
+              scan's translation within 0.02 m, ATE within 25% or 5 mm of
+              the pin's; sps's ATE below raw's on 20220629.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path and 8 of the shipping path with torch.profiler and prints
@@ -965,47 +982,249 @@ def _incl_device_us(evt) -> float:
     return 0.0
 
 
+def _on_device(evt) -> bool:
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def profiled(step, n):
+    """torch.profiler over step(i) for i < n, synchronised at the end.
+    Returns the kernel events (device events outside the sps.* ranges),
+    the sps.* ranges as {name: {count, host_us, kernel_us, span_us}} and
+    the wall time in microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    ka = prof.key_averages()
+    kernels = [e for e in ka if _on_device(e) and not e.key.startswith("sps.")]
+    spans = {e.key: _device_us(e) for e in ka if _on_device(e) and e.key.startswith("sps.")}
+    ranges = {e.key: dict(count=e.count, host_us=e.cpu_time_total, kernel_us=_incl_device_us(e),
+                          span_us=spans.get(e.key, 0.0))
+              for e in ka if not _on_device(e) and e.key.startswith("sps.")}
+    return kernels, ranges, wall_us
+
+
 def phase_profile(filt, data, card, label, n=8):
     """--profile: torch.profiler over n scans from a fresh rebuild (1
     rebuild + n-1 reuse at TOPO_EVERY 8): device busy share, kernel time and
     launches per scan, time per profiler range (sps.*) and the kernels that
     take the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     scans, valids, labels = data
     pose = np.eye(4, dtype=np.float32)
     filt.invalidate()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for i in range(n):
-            filt(scans[i], valids[i], labels[i], pose)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    ka = prof.key_averages()
-
-    def on_device(e):
-        return str(getattr(e, "device_type", "")).endswith("CUDA")
-
-    kernels = [e for e in ka if on_device(e) and not e.key.startswith("sps.")]
+    kernels, ranges, wall_us = profiled(lambda i: filt(scans[i], valids[i], labels[i], pose), n)
     busy = sum(_device_us(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     log(f"profile ({label}): {n} scans, wall {wall_us / 1e3:.2f} ms, kernels "
         f"{busy / 1e3:.2f} ms ({busy / n / 1e3:.2f} ms per scan; device busy "
         f"{100 * busy / wall_us:.1f}%), {launches / n:.0f} kernel launches per scan [{card}]")
-    spans = {e.key: _device_us(e) for e in ka if on_device(e) and e.key.startswith("sps.")}
-    for e in sorted((e for e in ka if not on_device(e) and e.key.startswith("sps.")),
-                    key=lambda e: e.key):
-        log(f"  range {e.key:24s} x{e.count:2d}  host {e.cpu_time_total / 1e3:9.3f} ms  "
-            f"kernels {_incl_device_us(e) / 1e3:9.3f} ms  device span "
-            f"{spans.get(e.key, 0.0) / 1e3:9.3f} ms")
+    for key in sorted(ranges):
+        r = ranges[key]
+        log(f"  range {key:24s} x{r['count']:2d}  host {r['host_us'] / 1e3:9.3f} ms  "
+            f"kernels {r['kernel_us'] / 1e3:9.3f} ms  device span {r['span_us'] / 1e3:9.3f} ms")
     int8 = [e for e in kernels if "brick_int8" in e.key]
     log(f"  int8 conv kernels (brick_int8*): {sum(_device_us(e) for e in int8) / n / 1e3:.3f} ms "
         f"per scan, {sum(e.count for e in int8) / n:.0f} launches per scan, "
         f"{len(int8)} instances")
     for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
         log(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d}  {e.key[:100]}")
+
+
+LOOP_POSE_TOL = 0.05  # m, phase 7's pose error against the trajectory's truth
+LOOP_ROT_TOL = 0.5  # degrees
+# Phase 7 seeds its first two scans this far from the truth: 0.3 m in the
+# plane and 3 degrees of yaw.
+LOOP_PRIOR_XY, LOOP_PRIOR_YAW_DEG = (0.24, 0.18), 3.0
+# Phase 8 against sps_tpu's pin: per-scan translation, ATE and kept
+# fraction (the H100 read at most 0.69 mm, 1.3e-5 m and 0.001).
+LOC_POSE_TOL = 0.003
+LOC_ATE_TOL = 0.001
+LOC_KEPT_TOL = 0.005
+
+
+def loop_prior():
+    """Phase 7's seed pose for scans 0 and 1 (the truth is the identity)."""
+    a = np.radians(LOOP_PRIOR_YAW_DEG)
+    p = np.eye(4, dtype=np.float32)
+    p[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+    p[:2, 3] = LOOP_PRIOR_XY
+    return p
+
+
+def loop_profile(loop, on_card, prior, n, card, label):
+    """torch.profiler over n scans of the loop from a fresh state (the
+    first two seeded with `prior`): kernel time and launches per scan, and
+    the kernel and host time under the sps.loop.filter and sps.loop.icp
+    ranges."""
+    scans, valids, labels = on_card
+    loop.invalidate()
+    kernels, ranges, _ = profiled(
+        lambda i: loop(scans[i], valids[i], labels[i], prior=prior if i <= 1 else None), n)
+    out = {"kernel_ms": sum(_device_us(e) for e in kernels) / n / 1e3,
+           "kernel_launches": sum(e.count for e in kernels) / n}
+    for name in ("filter", "icp"):
+        r = ranges.get(f"sps.loop.{name}", dict(kernel_us=0.0, host_us=0.0))
+        out[f"{name}_ms"] = r["kernel_us"] / n / 1e3
+        out[f"{name}_host_ms"] = r["host_us"] / n / 1e3
+    log(f"  {label} profile [{card}]: kernels {out['kernel_ms']:.2f} ms a scan (filter "
+        f"{out['filter_ms']:.2f}, ICP {out['icp_ms']:.2f}), "
+        f"{out['kernel_launches']:.0f} launches a scan; host time in the ranges: filter "
+        f"{out['filter_host_ms']:.2f}, ICP {out['icp_host_ms']:.2f} ms a scan")
+    return out
+
+
+def phase_loop(card, shipped, sd, stable, data):
+    """The localization loop on the shipping path: LocalizationLoop at
+    config/config.yaml as shipped over the BLT-scale scans (in the map
+    frame: the truth is the identity for every scan), refine on, then off.
+    The first two calls take loop_prior() (0.3 m and 3 degrees of yaw off
+    the truth), the rest the cv prior; every reuse call runs under sync
+    debug mode "error"; the int8 gather form must launch 10 times a filter
+    pass; every pose within LOOP_POSE_TOL and LOOP_ROT_TOL of the truth,
+    so the ICP has to take the seeded scans back to it. Prints the
+    synchronised per-scan p50, peak memory, and the profiler's kernel time
+    and launches a scan with the filter / ICP split."""
+    import torch
+
+    from sps_torch.ops import brick_conv_int8 as bi8
+    from sps_torch.stream.loop import LocalizationLoop
+
+    log("phase 7: localization loop on the shipping path (config.yaml as shipped, "
+        "filter -> ICP)")
+    scans, valids, labels = data
+    on_card = [torch.as_tensor(a, device="cuda") for a in (scans, valids, labels)]
+    prior = torch.as_tensor(loop_prior(), device="cuda")
+    n_scans = len(scans)
+    log(f"  scans 0-1 seeded {np.linalg.norm(LOOP_PRIOR_XY):.2f} m and "
+        f"{LOOP_PRIOR_YAW_DEG:g} deg of yaw off the truth")
+    runs = {}
+    for refine in (True, False):
+        label = "loop, refine" if refine else "loop, no refine"
+        t0 = time.time()
+        loop = LocalizationLoop(shipped, sd, stable, refine=refine)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        topo = loop.filt.topo_every
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        lat, errs, rots, passes = [], [], [], 0
+        for i in range(n_scans):
+            reuse = i % topo != 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if reuse:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                pose, keep, st = loop(on_card[0][i], on_card[1][i], on_card[2][i],
+                                      prior=prior if i <= 1 else None)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+            passes += 2 if refine else 1
+            p = pose.cpu().numpy()
+            errs.append(float(np.linalg.norm(p[:3, 3])))
+            rots.append(float(np.degrees(np.arccos(np.clip((np.trace(p[:3, :3]) - 1) / 2,
+                                                           -1, 1)))))
+            if not np.isfinite(p).all() or bool(st["overflow"]):
+                raise AssertionError(f"{label} scan {i}: pose not finite or overflow")
+            if int(st["n_kept"]) <= 0 or int(st["inliers"]) <= 0:
+                raise AssertionError(f"{label} scan {i}: nothing kept or no inlier")
+        gather = bi8.GATHER_LAUNCHES["brick_conv_int8_gather"]
+        peak = torch.cuda.max_memory_allocated()
+        p50 = statistics.median(lat)
+        log(f"  {label}: map digest {build_s:.1f} s; per-scan latency ms "
+            f"{[round(x, 2) for x in lat]}; p50 {p50:.2f} ms; peak device memory "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        log(f"  {label}: translation error m {errs}, rotation error deg {rots}; {passes} filter passes, brick_conv_int8_gather launches "
+            f"{gather} (expected {10 * passes}), halo form {bi8.LAUNCHES['brick_conv_int8']}")
+        log(f"  {n_scans - (n_scans + topo - 1) // topo} reuse calls ran in sync debug mode "
+            f"'error': no host sync")
+        if gather != 10 * passes or bi8.LAUNCHES["brick_conv_int8"] != 0:
+            raise AssertionError(f"{label}: int8 launches {gather}, expected {10 * passes}")
+        if not (max(errs) < LOOP_POSE_TOL and max(rots) < LOOP_ROT_TOL):
+            raise AssertionError(f"{label}: pose error {max(errs)} m, {max(rots)} deg exceeds "
+                                 f"{LOOP_POSE_TOL} m, {LOOP_ROT_TOL} deg")
+        prof = loop_profile(loop, on_card, prior, min(8, n_scans), card, label)
+        runs["refine" if refine else "norefine"] = dict(
+            p50=p50, lat=lat, peak=peak, launches=gather, passes=passes, max_err_m=max(errs),
+            max_rot_deg=max(rots), **prof)
+        del loop
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_trained(card):
+    """Trained localization: the movers dataset (config_loc_movers.yaml's
+    recipe, generated by the port), ckpt_loc_movers_v2 from its npz under
+    config_loc_movers_v2.yaml at epsilon 0.99, run_localization with raw,
+    sps and oracle (prior odom, init_noise 0.05, refine) on 20220629 and
+    20220629_clean, held against sps_tpu's pinned poses, ATEs and kept
+    fractions (LOC_POSE_TOL, LOC_ATE_TOL, LOC_KEPT_TOL); sps must beat raw
+    on 20220629."""
+    import shutil
+
+    import torch
+
+    from sps_torch import config
+    from sps_torch.convert import ASSETS, load_npz
+    from sps_torch.data import synthetic
+    from sps_torch.stream.localize import run_localization
+
+    log("phase 8: trained localization (ckpt_loc_movers_v2, movers sequences)")
+    pin = np.load(os.path.join(ASSETS, "loc_movers_v2_pin.npz"))
+    n = int(pin["scans"])
+    root = os.path.join(HERE, "build", "movers")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    synthetic.generate_dense(root, **dict(synthetic.MOVERS, scans_per_seq=n))
+    cfg = dataclasses.replace(
+        config.load(os.path.join(HERE, "config", "config_loc_movers_v2.yaml"), data_root=root),
+        threshold=float(pin["epsilon"]))
+    sd = load_npz(os.path.join(ASSETS, "ckpt_loc_movers_v2.npz"))
+    log(f"  {n} scans a sequence, generated in {time.time() - t0:.1f} s; epsilon "
+        f"{cfg.threshold}, conv_mode {cfg.tpu.conv_mode}, int8 {cfg.tpu.int8}, dist_feature "
+        f"{cfg.dist_feature}, bf16 {cfg.tpu.bf16}, topo_every {cfg.tpu.topo_every}")
+    cache, out = {}, {}
+    try:
+        for seq in ("20220629", "20220629_clean"):
+            for mode in ("raw", "sps", "oracle"):
+                key = f"{seq}/{mode}"
+                torch.cuda.synchronize()
+                t = time.time()
+                r = run_localization(cfg, sd, seq, mode, prior="odom", init_noise=0.05,
+                                     refine=True, seed=0, cache=cache, log=lambda _m: None)
+                secs = time.time() - t
+                want = pin[key + "/poses"]
+                gap = np.linalg.norm(r["poses"][:, :3, 3] - want[:, :3, 3], axis=-1)
+                ate_pin = float(pin[key + "/ate"])
+                ate_gap = abs(r["ate_rmse"] - ate_pin)
+                kept_pin = float(pin[key + "/kept_frac_mean"])
+                kept_gap = abs(r["kept_frac_mean"] - kept_pin)
+                out[key] = dict(ate=r["ate_rmse"], ate_pin=ate_pin, ate_gap_m=ate_gap,
+                                kept=r["kept_frac_mean"], kept_pin=kept_pin, kept_gap=kept_gap,
+                                max_pose_gap_m=float(gap.max()), s=secs)
+                log(f"  {key}: ATE {r['ate_rmse']} m (sps_tpu pin {ate_pin}, gap {ate_gap}), "
+                    f"kept {r['kept_frac_mean']} (pin {kept_pin}, gap {kept_gap}), pose gap to "
+                    f"the pin max {gap.max()} m, mean {gap.mean()} m; {secs:.1f} s")
+                if not np.isfinite(r["poses"]).all() or gap.max() > LOC_POSE_TOL:
+                    raise AssertionError(f"{key}: a pose is {gap.max()} m from sps_tpu's "
+                                         f"(tolerance {LOC_POSE_TOL})")
+                if ate_gap > LOC_ATE_TOL or kept_gap > LOC_KEPT_TOL:
+                    raise AssertionError(f"{key}: ATE {r['ate_rmse']}, kept {r['kept_frac_mean']} "
+                                         f"against the pin's {ate_pin}, {kept_pin}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  ATE m [{card}]: " + ", ".join(f"{k} {v['ate']:.4f}" for k, v in out.items()))
+    if not out["20220629/sps"]["ate"] < out["20220629/raw"]["ate"]:
+        raise AssertionError("20220629: sps does not beat raw")
+    return out
 
 
 def main() -> int:
@@ -1062,6 +1281,8 @@ def main() -> int:
     zband = phase_path(card, shipped, sd, stable, data, profile)
     k3 = phase_microbench(card)
     ship = phase_shipping(card, shipped, sd, stable, data, profile)
+    loop = phase_loop(card, shipped, sd, stable, data)
+    trained = phase_trained(card)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -1117,7 +1338,8 @@ def main() -> int:
         "halo_plus_halo_form_ms": g["halo_plus_halo_form_ms"],
         "halo_form_same_operands_ms": g["halo_form_ms"],
         "halo_conv3d_bf16_ms": g["halo_conv3d_bf16_ms"],
-        "path_num_bricks": ship["num_bricks"], "calls": gather_calls,
+        "path_num_bricks": ship["num_bricks"],
+        "loop_launches": {k: r["launches"] for k, r in loop.items()}, "calls": gather_calls,
         "halo_form": {
             "name": "brick_conv_int8", "source": os.path.relpath(bi8.SOURCE, HERE),
             "replaces": REPLACES["brick_conv_int8"],
@@ -1126,7 +1348,10 @@ def main() -> int:
             "library_ms": None, "conv3d_bf16_ms": h["conv3d_bf16_ms"], "calls": int8_calls},
     })
     log(f"paths [{card}]: zband p50 {zband['p50']:.2f} ms, peak {zband['peak'] / 2**30:.2f} GiB; "
-        f"shipping p50 {ship['p50']:.2f} ms, peak {ship['peak'] / 2**30:.2f} GiB")
+        f"shipping p50 {ship['p50']:.2f} ms, peak {ship['peak'] / 2**30:.2f} GiB; loop p50 "
+        f"{loop['refine']['p50']:.2f} ms (refine), {loop['norefine']['p50']:.2f} ms (no refine); "
+        f"trained ATE 20220629 sps {trained['20220629/sps']['ate']:.4f} m, raw "
+        f"{trained['20220629/raw']['ate']:.4f} m")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

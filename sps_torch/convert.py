@@ -3,6 +3,10 @@
 `state_dict_from_jax` takes the tree {"params": ..., "batch_stats": ...}
 with numpy leaves (jax.tree.map(np.asarray, variables)) and returns a
 state_dict for sps_torch.models.spsnet.SPSModel.load_state_dict(strict=True).
+`load_npz` reads a trained checkpoint exported to an npz by
+scripts/export_torch_assets.py (leaves keyed by their tree path,
+"params/MinkUNet/block8_0/conv1/kernel"; f32), e.g.
+sps_torch/assets/ckpt_loc_movers_v2.npz.
 Names mirror flax's (MinkUNet.block8_0.conv1.kernel,
 MinkUNet.block8_0.norm1.{scale,bias,mean,var}); kernels keep their
 (k^3, kt, Cin, Cout) layout with x-slowest offsets, and the torch modules
@@ -10,6 +14,8 @@ pack them as sps_tpu does.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -31,3 +37,19 @@ def state_dict_from_jax(variables_np: dict) -> dict[str, torch.Tensor]:
     _flatten(variables_np["params"], "", sd)
     _flatten(variables_np.get("batch_stats", {}), "", sd)
     return sd
+
+
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
+
+
+def load_npz(path: str) -> dict[str, torch.Tensor]:
+    """An exported checkpoint npz -> SPSModel state_dict."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return state_dict_from_jax(tree)

@@ -20,6 +20,7 @@ from sps_torch.ops import voxelize as vox
 from sps_torch.structs import Capacities, PointBatch
 
 NUM_LEVELS = 5
+MAP_T = 0  # the map's time slot (the scan's is 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,25 +72,52 @@ def build_pyramid(pb: PointBatch, cfg: SPSConfig):
 class SPSModel(nn.Module):
     def __init__(self, cfg: SPSConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.dist_feature:
-            raise NotImplementedError("the distance-to-map feature is not ported yet")
+        if cfg.dist_feature and cfg.unet.in_channels != 2:
+            raise ValueError("dist_feature needs in_channels=2")
         self.cfg = cfg
         self.MinkUNet = MinkUNet(cfg.unet, generator)
 
-    def forward(self, *, levels, p2v, t_idx, valid):
+    def forward(self, *, levels, p2v, t_idx, valid, point_dist=None):
         """Returns (scores, aux): (N,) sigmoid stability scores (0 for padded
-        points) and a dict with the per-level overflow flags."""
+        points) and a dict with the per-level overflow flags. point_dist:
+        (N,) distance to the map per point (the dist_feature input; 0 when
+        None)."""
         cfg = self.cfg
         overflow = torch.stack([lv.grid.overflow for lv in levels])
         occ0 = levels[0].grid.occ
-        # Constant 0.5 input feature on occupied slots.
-        feats0 = (0.5 * occ0.repeat_interleave(cfg.unet.in_channels, dim=-1)).to(cfg.unet.dtype)
+        if cfg.dist_feature:
+            feats0 = self._dist_feats(occ0, p2v, t_idx, valid, point_dist)
+        else:
+            # Constant 0.5 input feature on occupied slots.
+            feats0 = (0.5 * occ0.repeat_interleave(cfg.unet.in_channels, dim=-1)).to(
+                cfg.unet.dtype)
         out = self.MinkUNet(feats0, levels)
         per_point = vox.devoxelize_flat(
             out, p2v, t_idx, num_time=cfg.unet.num_time, channels=cfg.unet.out_channels
         )[:, 0].float()
         scores = torch.sigmoid(per_point) * valid.to(per_point.dtype)
         return scores, {"overflow": overflow, "point2voxel": p2v}
+
+    def _dist_feats(self, occ0, p2v, t_idx, valid, point_dist):
+        """Two channels per time slot: 0.5 * occupancy and the distance to
+        the map, scatter-min of the points' distances into their (slot, t)
+        cells (cells without a point stay at dist_cap), scaled to [0, 1],
+        masked by occupancy; the MAP slot's distance is 0 by definition."""
+        cfg = self.cfg
+        t = cfg.unet.num_time
+        st = occ0.numel()  # slots * T; the index matches devoxelize_flat
+        if point_dist is None:
+            point_dist = torch.zeros(t_idx.shape, dtype=torch.float32, device=occ0.device)
+        idx = torch.where((p2v >= 0) & valid,
+                          p2v.clamp(min=0).long() * t + t_idx.clamp(0, t - 1).long(), st)
+        dvox = torch.full((st + 1,), cfg.dist_cap, dtype=torch.float32, device=occ0.device)
+        dvox.scatter_reduce_(0, idx, point_dist.float(), "amin", include_self=True)
+        occ = occ0.float()
+        d01 = (dvox[:st].view(occ0.shape) / cfg.dist_cap) * occ
+        if t >= 2:
+            d01.select(-1, MAP_T).fill_(0.0)
+        return torch.stack([0.5 * occ, d01], -1).reshape(
+            occ0.shape[:-1] + (t * 2,)).to(cfg.unet.dtype)
 
 
 def init_state_dict(cfg: SPSConfig, seed: int = 0) -> dict[str, torch.Tensor]:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from sps_torch import register as reg
 from sps_torch.config import Config
 from sps_torch.models.spsnet import SPSModel, build_levels_from_grid
 from sps_torch.ops import atlas as atl
@@ -73,17 +74,28 @@ class StreamingFilter:
         self.topo_every = cfg.tpu.topo_every
         self._topo_cache = None
         self._dispatch_i = 0
-        self.map_grid = build_map_atlas(np.asarray(map_points)[:, :3], cfg.voxel_size,
-                                        cfg.tpu.brick_side, device=self.device)
+        map_points = np.asarray(map_points)[:, :3]
+        self.map_grid = build_map_atlas(map_points, cfg.voxel_size, cfg.tpu.brick_side,
+                                        device=self.device)
+        # Distance-to-map input feature: one registration LUT gather per point.
+        self.map_vm = (reg.build_voxel_map(map_points, 4 * cfg.voxel_size, device=self.device)
+                       if self.sps_cfg.dist_feature else None)
         self.eps = cfg.threshold
 
     def _posed(self, scan_xyz, valid, poses):
+        """Map-frame points -> (valid, voxel coords, batch index, distance to
+        the map or None), flattened over the batch."""
         nb, n = scan_xyz.shape[:2]
         xyz = torch.einsum("bij,bnj->bni", poses[:, :3, :3], scan_xyz) + poses[:, None, :3, 3]
+        xyz = xyz.reshape(nb * n, 3)
         vflat = valid.reshape(nb * n)
-        coords = vox.quantize(xyz.reshape(nb * n, 3), self.cfg.voxel_size)
+        coords = vox.quantize(xyz, self.cfg.voxel_size)
         batch_idx = torch.arange(nb, dtype=torch.int32, device=self.device).repeat_interleave(n)
-        return vflat, coords, batch_idx
+        pdist = None
+        if self.map_vm is not None:
+            # Online semantics: capped at cfg.dist_cap (offline training uses 1.0).
+            pdist = reg.point_map_distance(self.map_vm, xyz, vflat, cap=self.sps_cfg.dist_cap)
+        return vflat, coords, batch_idx, pdist
 
     def _stats(self, scores, labels, vflat, keep, occ, overlap, overflow, miss):
         labels = labels.reshape(-1)
@@ -104,7 +116,7 @@ class StreamingFilter:
         scfg = self.sps_cfg
         bcap = scfg.caps.bricks[0]
         nb, n = scan_xyz.shape[:2]
-        vflat, coords, batch_idx = self._posed(scan_xyz, valid, poses)
+        vflat, coords, batch_idx, pdist = self._posed(scan_xyz, valid, poses)
         ones = torch.ones(nb * n, dtype=torch.int32, device=self.device)  # scan slot 1
         grid, p2s = atl.voxelize_bricks(
             coords, batch_idx, ones, vflat, num_time=2, brick_capacity=bcap,
@@ -120,7 +132,8 @@ class StreamingFilter:
         occ = torch.stack([overlap, grid.occ[..., 1]], dim=-1)
         levels, lvl_overflow = build_levels_from_grid(grid._replace(occ=occ), scfg)
         with record_function("sps.model"):
-            scores, aux = self.model(levels=levels, p2v=p2s, t_idx=ones, valid=vflat)
+            scores, aux = self.model(levels=levels, p2v=p2s, t_idx=ones, valid=vflat,
+                                     point_dist=pdist)
         keep = (scores <= self.eps) & vflat
         stats = self._stats(scores, labels, vflat, keep, occ, overlap,
                             aux["overflow"].any() | lvl_overflow.any(),
@@ -136,7 +149,7 @@ class StreamingFilter:
         shift = bs.bit_length() - 1
         bvol = bs**3
         nb, n = scan_xyz.shape[:2]
-        vflat, coords, batch_idx = self._posed(scan_xyz, valid, poses)
+        vflat, coords, batch_idx, pdist = self._posed(scan_xyz, valid, poses)
         l0 = levels[0].grid
         local = coords & (bs - 1)
         p2b = atl.atlas_rows(l0, batch_idx, coords >> shift)
@@ -154,7 +167,8 @@ class StreamingFilter:
         levels2 = atl.refresh_occupancy(levels, occ)
         ones = torch.ones(nb * n, dtype=torch.int32, device=self.device)
         with record_function("sps.model"):
-            scores, aux = self.model(levels=levels2, p2v=point2slot, t_idx=ones, valid=vflat)
+            scores, aux = self.model(levels=levels2, p2v=point2slot, t_idx=ones, valid=vflat,
+                                     point_dist=pdist)
         keep = (scores <= self.eps) & vflat
         stats = self._stats(scores, labels, vflat, keep, occ, overlap,
                             aux["overflow"].any(), miss)

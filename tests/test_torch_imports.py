@@ -34,12 +34,16 @@ def test_every_module_imports_with_jax_blocked():
         loaded = [m for m, v in sys.modules.items()
                   if v is not None and m.split(".")[0] in {BANNED!r}]
         assert not loaded, loaded
-        print(len(mods))
+        print(" ".join(mods))
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    mods = r.stdout.split()
+    assert len(mods) >= 19
+    for m in ("register", "stream.loop", "stream.localize", "data.blt", "data.synthetic",
+              "convert", "stream.engine"):
+        assert f"sps_torch.{m}" in mods, m
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, _ROOT))
@@ -69,3 +73,22 @@ def test_streaming_filter_defaults_to_the_card():
     cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"))
     with pytest.raises(RuntimeError, match="CUDA"):
         StreamingFilter(cfg, {}, np.zeros((10, 3), np.float32))
+
+
+@pytest.mark.parametrize("entry", ["build_voxel_map", "LocalizationLoop", "run_localization"])
+def test_new_entry_points_default_to_the_card(entry):
+    """The registration map, the loop and run_localization run on
+    the card unless device="cpu" is passed."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sps_torch import config, register
+    from sps_torch.stream.localize import run_localization
+    from sps_torch.stream.loop import LocalizationLoop
+
+    cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"))
+    pts = np.zeros((10, 3), np.float32)
+    call = {"build_voxel_map": lambda: register.build_voxel_map(pts, 0.4),
+            "LocalizationLoop": lambda: LocalizationLoop(cfg, {}, pts),
+            "run_localization": lambda: run_localization(cfg, {}, "20220629", "raw")}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
