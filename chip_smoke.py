@@ -86,12 +86,35 @@ Phases, each of which raises (and exits non-zero) on failure:
               with raw, sps and oracle (prior odom, init_noise 0.05,
               refine) on 20220629 and 20220629_clean, held against
               sps_tpu's pin (sps_torch/assets/loc_movers_v2_pin.npz): each
-              scan's translation within 0.02 m, ATE within 25% or 5 mm of
-              the pin's; sps's ATE below raw's on 20220629.
+              scan's translation within 3 mm, ATE within 1 mm and kept
+              fraction within 0.005 of the pin's; sps's ATE below raw's on
+              20220629;
+  9. offline - (9a) the int8 parity gate of tests/test_int8_parity.py on
+              the trained v1 checkpoint (sps_torch/assets/ckpt_loc_movers.npz,
+              config_loc_movers.yaml, epsilon 0.9, six scans of 20220608
+              generated alone): StreamingFilter float, INT8 and INT8 +
+              HEAD_FOLD, TP/FP/FN summed over the scans; float uIoU > 0.5,
+              each int8 run within 0.005 of it, each within 0.005 of
+              sps_tpu's pin (int8_parity_pin.npz), 10 gather-form launches a
+              scan in the int8 runs and none in the float run; (9b)
+              eval.predict_sequence on 20220629 of the movers data with v1
+              (config_loc_movers.yaml) and v2 (config_loc_movers_v2.yaml,
+              the distance feature), each mean metric within 0.005 of
+              sps_tpu's pin (predict_pin.npz) and the same per-scan overflow
+              flags (the 25.6 m atlas window does not hold a movers scan);
+              (9c) predict_sequence at config/config.yaml as shipped on phase
+              6's scans and map written to disk under build/blt (the dense
+              join at JOIN_EXTENT, SUBMAP_POINTS 131072): 10 gather launches
+              a scan, finite scores, no capacity overflow, int8 within 0.1 of
+              its int8-off twin, ms a scan and peak memory; (9d)
+              stream.replay.replay_sequence over the same sequence, every
+              filter call under sync debug mode "error", its scores and keeps
+              bit-equal to a fresh StreamingFilter called directly.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
-the zband path and 8 of the shipping path with torch.profiler and prints
-the device busy share, the time per profiler range and the top kernels.
+the zband path, 8 of the shipping path and 8 offline predict steps (9c)
+with torch.profiler and prints the device busy share, the time per
+profiler range and the top kernels.
 """
 
 from __future__ import annotations
@@ -100,6 +123,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1160,71 +1184,405 @@ def phase_loop(card, shipped, sd, stable, data):
     return runs
 
 
-def phase_trained(card):
-    """Trained localization: the movers dataset (config_loc_movers.yaml's
-    recipe, generated by the port), ckpt_loc_movers_v2 from its npz under
+def phase_trained(card, root):
+    """Trained localization: the movers dataset under `root`
+    (config_loc_movers.yaml's recipe, generated by the port,
+    movers_data), ckpt_loc_movers_v2 from its npz under
     config_loc_movers_v2.yaml at epsilon 0.99, run_localization with raw,
     sps and oracle (prior odom, init_noise 0.05, refine) on 20220629 and
     20220629_clean, held against sps_tpu's pinned poses, ATEs and kept
     fractions (LOC_POSE_TOL, LOC_ATE_TOL, LOC_KEPT_TOL); sps must beat raw
     on 20220629."""
-    import shutil
-
     import torch
 
     from sps_torch import config
     from sps_torch.convert import ASSETS, load_npz
-    from sps_torch.data import synthetic
     from sps_torch.stream.localize import run_localization
 
     log("phase 8: trained localization (ckpt_loc_movers_v2, movers sequences)")
     pin = np.load(os.path.join(ASSETS, "loc_movers_v2_pin.npz"))
     n = int(pin["scans"])
-    root = os.path.join(HERE, "build", "movers")
-    shutil.rmtree(root, ignore_errors=True)
-    t0 = time.time()
-    synthetic.generate_dense(root, **dict(synthetic.MOVERS, scans_per_seq=n))
     cfg = dataclasses.replace(
         config.load(os.path.join(HERE, "config", "config_loc_movers_v2.yaml"), data_root=root),
         threshold=float(pin["epsilon"]))
     sd = load_npz(os.path.join(ASSETS, "ckpt_loc_movers_v2.npz"))
-    log(f"  {n} scans a sequence, generated in {time.time() - t0:.1f} s; epsilon "
+    log(f"  {n} scans a sequence; epsilon "
         f"{cfg.threshold}, conv_mode {cfg.tpu.conv_mode}, int8 {cfg.tpu.int8}, dist_feature "
         f"{cfg.dist_feature}, bf16 {cfg.tpu.bf16}, topo_every {cfg.tpu.topo_every}")
     cache, out = {}, {}
-    try:
-        for seq in ("20220629", "20220629_clean"):
-            for mode in ("raw", "sps", "oracle"):
-                key = f"{seq}/{mode}"
-                torch.cuda.synchronize()
-                t = time.time()
-                r = run_localization(cfg, sd, seq, mode, prior="odom", init_noise=0.05,
-                                     refine=True, seed=0, cache=cache, log=lambda _m: None)
-                secs = time.time() - t
-                want = pin[key + "/poses"]
-                gap = np.linalg.norm(r["poses"][:, :3, 3] - want[:, :3, 3], axis=-1)
-                ate_pin = float(pin[key + "/ate"])
-                ate_gap = abs(r["ate_rmse"] - ate_pin)
-                kept_pin = float(pin[key + "/kept_frac_mean"])
-                kept_gap = abs(r["kept_frac_mean"] - kept_pin)
-                out[key] = dict(ate=r["ate_rmse"], ate_pin=ate_pin, ate_gap_m=ate_gap,
-                                kept=r["kept_frac_mean"], kept_pin=kept_pin, kept_gap=kept_gap,
-                                max_pose_gap_m=float(gap.max()), s=secs)
-                log(f"  {key}: ATE {r['ate_rmse']} m (sps_tpu pin {ate_pin}, gap {ate_gap}), "
-                    f"kept {r['kept_frac_mean']} (pin {kept_pin}, gap {kept_gap}), pose gap to "
-                    f"the pin max {gap.max()} m, mean {gap.mean()} m; {secs:.1f} s")
-                if not np.isfinite(r["poses"]).all() or gap.max() > LOC_POSE_TOL:
-                    raise AssertionError(f"{key}: a pose is {gap.max()} m from sps_tpu's "
-                                         f"(tolerance {LOC_POSE_TOL})")
-                if ate_gap > LOC_ATE_TOL or kept_gap > LOC_KEPT_TOL:
-                    raise AssertionError(f"{key}: ATE {r['ate_rmse']}, kept {r['kept_frac_mean']} "
-                                         f"against the pin's {ate_pin}, {kept_pin}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    for seq in ("20220629", "20220629_clean"):
+        for mode in ("raw", "sps", "oracle"):
+            key = f"{seq}/{mode}"
+            torch.cuda.synchronize()
+            t = time.time()
+            r = run_localization(cfg, sd, seq, mode, prior="odom", init_noise=0.05,
+                                 refine=True, seed=0, cache=cache, log=lambda _m: None)
+            secs = time.time() - t
+            want = pin[key + "/poses"]
+            gap = np.linalg.norm(r["poses"][:, :3, 3] - want[:, :3, 3], axis=-1)
+            ate_pin = float(pin[key + "/ate"])
+            ate_gap = abs(r["ate_rmse"] - ate_pin)
+            kept_pin = float(pin[key + "/kept_frac_mean"])
+            kept_gap = abs(r["kept_frac_mean"] - kept_pin)
+            out[key] = dict(ate=r["ate_rmse"], ate_pin=ate_pin, ate_gap_m=ate_gap,
+                            kept=r["kept_frac_mean"], kept_pin=kept_pin, kept_gap=kept_gap,
+                            max_pose_gap_m=float(gap.max()), s=secs)
+            log(f"  {key}: ATE {r['ate_rmse']} m (sps_tpu pin {ate_pin}, gap {ate_gap}), "
+                f"kept {r['kept_frac_mean']} (pin {kept_pin}, gap {kept_gap}), pose gap to "
+                f"the pin max {gap.max()} m, mean {gap.mean()} m; {secs:.1f} s")
+            if not np.isfinite(r["poses"]).all() or gap.max() > LOC_POSE_TOL:
+                raise AssertionError(f"{key}: a pose is {gap.max()} m from sps_tpu's "
+                                     f"(tolerance {LOC_POSE_TOL})")
+            if ate_gap > LOC_ATE_TOL or kept_gap > LOC_KEPT_TOL:
+                raise AssertionError(f"{key}: ATE {r['ate_rmse']}, kept {r['kept_frac_mean']} "
+                                     f"against the pin's {ate_pin}, {kept_pin}")
     log(f"  ATE m [{card}]: " + ", ".join(f"{k} {v['ate']:.4f}" for k, v in out.items()))
     if not out["20220629/sps"]["ate"] < out["20220629/raw"]["ate"]:
         raise AssertionError("20220629: sps does not beat raw")
     return out
+
+
+# Phase 9 (offline). 9a: the gate of tests/test_int8_parity.py (float
+# uIoU above GATE_FLOAT_MIN, each int8 run within GATE_INT8_TOL of the float
+# run) and each uIoU within GATE_PIN_TOL of sps_tpu's pin.
+GATE_FLOAT_MIN = 0.5
+GATE_INT8_TOL = 0.005
+GATE_PIN_TOL = 0.005
+GATE_RUNS = {"float": {}, "int8": dict(int8=True), "int8_head_fold": dict(int8=True,
+                                                                           head_fold=True)}
+# 9b: each mean metric of predict_sequence against sps_tpu's pin (bf16 on
+# both sides; the gate's half point of uIoU; the H100 read at most 1e-4).
+PREDICT_TOL = 0.005
+PREDICT_RUNS = {"v1": ("ckpt_loc_movers.npz", "config_loc_movers.yaml"),
+                "v2": ("ckpt_loc_movers_v2.npz", "config_loc_movers_v2.yaml")}
+BLT_SEQ = "blt_scale"
+
+
+def movers_data(n):
+    """The movers dataset (config_loc_movers.yaml's recipe, n scans a
+    sequence) written by the port under build/movers; returns its root."""
+    from sps_torch.data import synthetic
+
+    root = os.path.join(HERE, "build", "movers")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    synthetic.generate_dense(root, **dict(synthetic.MOVERS, scans_per_seq=n))
+    log(f"movers dataset: {n} scans a sequence, generated in {time.time() - t0:.1f} s")
+    return root
+
+
+def write_blt(root, seq, stable, data):
+    """Phase 6's map and scans on disk in the BLT layout: the map as
+    base_map.asc.npy, each scan's valid rows as [x, y, z, label], identity
+    poses and map transform (the scans are in the map frame)."""
+    scans, valids, labels = data
+    sdir = os.path.join(root, "sequence", seq)
+    for sub in ("maps", os.path.join("sequence", seq, "scans"),
+                os.path.join("sequence", seq, "poses")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    np.save(os.path.join(root, "maps", "base_map.asc.npy"),
+            np.concatenate([stable, np.zeros((len(stable), 1), np.float32)], 1))
+    np.savetxt(os.path.join(sdir, "map_transform"), np.eye(4), delimiter=",")
+    for i in range(len(scans)):
+        v = valids[i]
+        np.save(os.path.join(sdir, "scans", f"{i:06d}.npy"),
+                np.concatenate([scans[i][v], labels[i][v][:, None]], 1).astype(np.float32))
+        np.savetxt(os.path.join(sdir, "poses", f"{i:06d}.txt"), np.eye(4), delimiter=",")
+
+
+def recorded(fn):
+    """fn wrapped to record each call: its synchronised time in ms, and the
+    scan rows' scores, overflow flags and metrics of predict_step's result."""
+    import torch
+
+    calls = []
+
+    def wrapper(model, batch, map_points, map_vm=None, *, cfg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores, scan_mask, m = fn(model, batch, map_points, map_vm, cfg=cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        ns = cfg.tpu.scan_points
+        calls.append(dict(ms=ms, scores=scores[:ns].float().cpu().numpy(),
+                          valid=batch["valid"][0].cpu().numpy(),
+                          **{k: float(v) for k, v in m.items()}))
+        return scores, scan_mask, m
+
+    return wrapper, calls
+
+
+def predicted(cfg, sd):
+    """eval.predict_sequence on the card with every launch count set to 0
+    just before and read just after; returns (means, per-scan records,
+    launches, peak device memory)."""
+    import torch
+
+    from sps_torch import eval as ev
+
+    real = ev.predict_step
+    ev.predict_step, calls = recorded(real)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        means = ev.predict_sequence(cfg, sd)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        ev.predict_step = real
+    return means, calls, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_gate(card):
+    """9a: the trained int8 gate. The v1 checkpoint under
+    config_loc_movers.yaml at the pin's epsilon on the gate's six scans of
+    20220608 (generated alone), StreamingFilter float, INT8 and INT8 +
+    HEAD_FOLD; TP/FP/FN summed over the scans (score > eps against label >
+    eps, as tests/test_int8_parity.py::_uiou)."""
+    import torch
+
+    from sps_torch import config
+    from sps_torch.convert import ASSETS, load_npz
+    from sps_torch.data import blt, synthetic
+    from sps_torch.ops import brick_conv_int8 as bi8
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 9a: the int8 parity gate on the trained v1 checkpoint")
+    pin = np.load(os.path.join(ASSETS, "int8_parity_pin.npz"))
+    eps = float(pin["epsilon"])
+    root = os.path.join(HERE, "build", "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        synthetic.generate_dense(root, **synthetic.PARITY)
+        seq = synthetic.PARITY["sequences"][0]
+        base = dataclasses.replace(
+            config.load(os.path.join(HERE, "config", "config_loc_movers.yaml"), data_root=root),
+            threshold=eps)
+        scans, poses = blt.load_sequences_raw(root, [seq])
+        mp = blt.load_map(root, base.data.map_file)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sd = load_npz(os.path.join(ASSETS, "ckpt_loc_movers.npz"))
+    ns = base.tpu.scan_points
+    out = {}
+    for run, opts in GATE_RUNS.items():
+        cfg = twin(base, **opts)
+        filt = StreamingFilter(cfg, sd, mp)
+        torch.cuda.synchronize()
+        reset_counts()
+        tp = fp = fn = 0
+        gaps = []
+        for i, (scan, pose) in enumerate(zip(scans, poses)):
+            n = min(len(scan), ns)
+            sx = np.zeros((ns, 3), np.float32)
+            sl = np.zeros(ns, np.float32)
+            sv = np.zeros(ns, bool)
+            sx[:n], sl[:n], sv[:n] = scan[:n, :3], scan[:n, 3], True
+            scores, _, _ = filt(sx, sv, sl, pose.astype(np.float32))
+            s = scores.float().cpu().numpy()
+            if not (np.isfinite(s).all() and (s[sv] > 0).all() and s.max() <= 1):
+                raise AssertionError(f"9a {run} scan {i}: scores not finite or outside (0, 1]")
+            pred, true = s[sv] > eps, sl[sv] > eps
+            tp += int((pred & true).sum())
+            fp += int((pred & ~true).sum())
+            fn += int((~pred & true).sum())
+            gaps.append(float(np.abs(s - pin[f"{run}/scores"][i])[sv].max()))
+        launches = bi8.GATHER_LAUNCHES["brick_conv_int8_gather"]
+        want = 10 * len(scans) if opts.get("int8") else 0
+        uiou = tp / max(tp + fn + fp, 1)
+        pin_uiou = float(pin[f"{run}/uiou"])
+        out[run] = dict(uiou=uiou, pin_uiou=pin_uiou, tp=tp, fp=fp, fn=fn, launches=launches,
+                        max_dscore_vs_pin=max(gaps))
+        log(f"  {run}: uIoU {uiou} (TP {tp}, FP {fp}, FN {fn}; sps_tpu pin {pin_uiou}, gap "
+            f"{abs(uiou - pin_uiou)}); max |dscore| against the pin per scan {gaps}; "
+            f"brick_conv_int8_gather launches {launches} (expected {want}) [{card}]")
+        if launches != want or bi8.LAUNCHES["brick_conv_int8"] != 0:
+            raise AssertionError(f"9a {run}: int8 launches {launches}, expected {want}")
+        if abs(uiou - pin_uiou) > GATE_PIN_TOL:
+            raise AssertionError(f"9a {run}: uIoU {uiou} is more than {GATE_PIN_TOL} from "
+                                 f"sps_tpu's {pin_uiou}")
+        del filt
+    if not out["float"]["uiou"] > GATE_FLOAT_MIN:
+        raise AssertionError(f"9a: float uIoU {out['float']['uiou']} <= {GATE_FLOAT_MIN}")
+    for run in [r for r in GATE_RUNS if r != "float"]:
+        d = abs(out[run]["uiou"] - out["float"]["uiou"])
+        log(f"  |uIoU({run}) - uIoU(float)| = {d} (bound {GATE_INT8_TOL})")
+        if d > GATE_INT8_TOL:
+            raise AssertionError(f"9a: {run} moves uIoU by {d} > {GATE_INT8_TOL}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_predict_trained(card, movers_root):
+    """9b: predict_sequence with the trained checkpoints on 20220629 of the
+    movers data, against sps_tpu's pin."""
+    from sps_torch import config
+    from sps_torch.convert import ASSETS, load_npz
+
+    log("phase 9b: predict with trained weights (movers 20220629)")
+    pin = np.load(os.path.join(ASSETS, "predict_pin.npz"))
+    out = {}
+    for tag, (weights, cfg_name) in PREDICT_RUNS.items():
+        cfg = config.load(os.path.join(HERE, "config", cfg_name), data_root=movers_root)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, test=("20220629",)))
+        means, calls, launches, peak = predicted(cfg, load_npz(os.path.join(ASSETS, weights)))
+        if len(calls) != int(pin["scans"]):
+            raise AssertionError(f"9b {tag}: {len(calls)} scans, the pin has {int(pin['scans'])}")
+        gaps = {k: abs(means[k] - float(np.mean(pin[f"{tag}/{k}"]))) for k in
+                ("Loss", "R2", "dIoU", "Precision", "Recall", "F1")}
+        ovf = [bool(c["overflow"]) for c in calls]
+        ovf_pin = [bool(x) for x in pin[f"{tag}/overflow"]]
+        dscore = max(float(np.abs(c["scores"] - pin[f"{tag}/scores"][i])[c["valid"]].max())
+                     for i, c in enumerate(calls))
+        out[tag] = dict(means=means, gaps=gaps, overflow_scans=sum(ovf),
+                        max_dscore_vs_pin=dscore, ms_p50=statistics.median(
+                            [c["ms"] for c in calls[1:]]))
+        log(f"  {tag} ({cfg_name}): " + ", ".join(f"{k} {v:.4f} (gap {gaps[k]:.4f})"
+                                                 for k, v in means.items() if k in gaps)
+            + f"; overflow on {sum(ovf)} scans (pin {sum(ovf_pin)}); max |dscore| against "
+            f"the pin {dscore:.4f}; predict_step p50 {out[tag]['ms_p50']:.2f} ms [{card}]")
+        if max(gaps.values()) > PREDICT_TOL:
+            raise AssertionError(f"9b {tag}: a mean metric is more than {PREDICT_TOL} from "
+                                 f"sps_tpu's: {gaps}")
+        # The configuration's 25.6 m atlas window does not hold a movers scan:
+        # sps_tpu flags the same overflow on the same scans.
+        if ovf != ovf_pin:
+            raise AssertionError(f"9b {tag}: overflow flags {ovf} differ from the pin's {ovf_pin}")
+        if launches["brick_conv_int8_gather"] != 0:
+            raise AssertionError(f"9b {tag}: an int8 kernel ran with INT8 off")
+    return out
+
+
+def predict_profile(cfg, sd, card, n=8):
+    """--profile: torch.profiler over predict_step on the first n scans of
+    the test split: device busy share, kernel time and launches a scan, and
+    the time under the sps.assemble / sps.model ranges."""
+    import torch
+
+    from sps_torch import eval as ev
+    from sps_torch.data.blt import BLTDataModule
+    from sps_torch.models.spsnet import SPSModel
+
+    model = SPSModel(cfg.sps_config(1))
+    model.load_state_dict(sd, strict=True)
+    model.cuda().eval()
+    dm = BLTDataModule(cfg, test=True)
+    mp = torch.as_tensor(dm.map_points, device="cuda")
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items() if k != "indices"}
+               for b in dm.batches(dm.test, 1, shuffle=False)][:n]
+    n = len(batches)
+
+    def step(i):
+        with torch.inference_mode():
+            ev.predict_step(model, batches[i], mp, cfg=cfg)
+
+    step(0)
+    kernels, ranges, wall_us = profiled(step, n)
+    busy = sum(_device_us(e) for e in kernels)
+    log(f"profile (offline predict_step): {n} scans, wall {wall_us / 1e3:.2f} ms, kernels "
+        f"{busy / n / 1e3:.2f} ms a scan (device busy {100 * busy / wall_us:.1f}%), "
+        f"{sum(e.count for e in kernels) / n:.0f} launches a scan [{card}]")
+    for key in sorted(ranges):
+        r = ranges[key]
+        log(f"  range {key:14s} host {r['host_us'] / n / 1e3:8.3f} ms  kernels "
+            f"{r['kernel_us'] / n / 1e3:8.3f} ms a scan")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
+        log(f"  kernel {_device_us(e) / n / 1e3:8.3f} ms a scan x{e.count / n:6.1f}  {e.key[:90]}")
+
+
+def phase_predict_blt(card, shipped, sd, stable, data, profile):
+    """9c: predict_sequence at config/config.yaml as shipped on phase 6's
+    scans and map written to disk (BLT layout), then its int8-off twin.
+    9d: replay_sequence over the same sequence, against a fresh
+    StreamingFilter called directly on the same scans."""
+    import torch
+
+    from sps_torch.data import blt
+    from sps_torch.stream import replay as rp
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 9c: predict at config.yaml as shipped, BLT scale, from disk")
+    root = os.path.join(HERE, "build", "blt")
+    shutil.rmtree(root, ignore_errors=True)
+    write_blt(root, BLT_SEQ, stable, data)
+    cfg = dataclasses.replace(shipped, data=dataclasses.replace(
+        shipped.data, root=root, test=(BLT_SEQ,)))
+    n_scans = len(data[0])
+    try:
+        means, calls, launches, peak = predicted(cfg, sd)
+        _, twin_calls, twin_launches, _ = predicted(twin(cfg, int8=False), sd)
+        ms = [c["ms"] for c in calls]
+        p50 = statistics.median(ms[1:])
+        log(f"  means {means}; submap points cut by SUBMAP_POINTS a scan "
+            f"{[int(c['submap_overflow']) for c in calls]}")
+        log(f"  predict_step ms a scan {[round(x, 2) for x in ms]}; p50 after the first "
+            f"{p50:.2f} ms; peak device memory {peak / 2**30:.2f} GiB [{card}]")
+        want = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans}
+        check_launches(dict(launches=launches), want, "9c predict")
+        if twin_launches["brick_conv_int8_gather"] != 0:
+            raise AssertionError("9c: the int8-off twin launched the int8 kernel")
+        for i, c in enumerate(calls):
+            s, v = c["scores"], c["valid"]
+            if c["overflow"] or not np.isfinite(s).all() or not (s[v] > 0).all() or s.max() > 1:
+                raise AssertionError(f"9c scan {i}: overflow, or scores not finite in (0, 1]")
+        d = max(float(np.abs(a["scores"] - b["scores"])[a["valid"]].max())
+                for a, b in zip(calls, twin_calls))
+        log(f"  int8 against its int8-off twin: max |dscore| {d:.4e} (bound 0.1)")
+        if not d <= 0.1:
+            raise AssertionError(f"9c: int8 moves a score by {d} > 0.1 from its twin")
+        blt_out = dict(ms=ms, p50=p50, peak=peak, launches=launches["brick_conv_int8_gather"],
+                       int8_vs_twin=d, means=means)
+        if profile:
+            predict_profile(cfg, sd, card)
+
+        log("phase 9d: replay of the same sequence, against the filter called directly")
+
+        class SyncChecked(StreamingFilter):
+            """The filter with every call under sync debug mode "error"."""
+
+            def __call__(self, *args):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return super().__call__(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+
+        rp.StreamingFilter = SyncChecked
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            stats = rp.replay_sequence(cfg, sd, BLT_SEQ, log=lambda m: log("  " + m))
+            replay_launches = read_counts()["brick_conv_int8_gather"]
+        finally:
+            rp.StreamingFilter = StreamingFilter
+        paths, poses = blt.sequence_files(root, BLT_SEQ)
+        filt = StreamingFilter(cfg, sd, blt.load_map(root, cfg.data.map_file))
+        ns = cfg.tpu.scan_points
+        for i, path in enumerate(paths):
+            scan = np.load(path)
+            n = len(scan)
+            sx = np.zeros((ns, 3), np.float32)
+            sl = np.zeros(ns, np.float32)
+            sv = np.zeros(ns, bool)
+            sx[:n], sl[:n], sv[:n] = scan[:, :3], scan[:, 3], True
+            scores, keep, _ = filt(sx, sv, sl, poses[i])
+            if not (np.array_equal(stats.scores[i], scores[:n].float().cpu().numpy())
+                    and np.array_equal(stats.keeps[i], keep[:n].cpu().numpy())):
+                raise AssertionError(f"9d scan {i}: replay differs from the direct filter")
+        summary = stats.summary()
+        log(f"  replay: scores and keeps of {len(paths)} scans bit-equal to the direct filter; "
+            f"every filter call ran in sync debug mode 'error'; brick_conv_int8_gather "
+            f"launches {replay_launches} (expected {10 * n_scans}); summary {summary} [{card}]")
+        if replay_launches != 10 * n_scans:
+            raise AssertionError(f"9d: int8 launches {replay_launches}, expected {10 * n_scans}")
+        del filt
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return blt_out, dict(summary=summary, launches=replay_launches)
 
 
 def main() -> int:
@@ -1282,7 +1640,16 @@ def main() -> int:
     k3 = phase_microbench(card)
     ship = phase_shipping(card, shipped, sd, stable, data, profile)
     loop = phase_loop(card, shipped, sd, stable, data)
-    trained = phase_trained(card)
+    pin_scans = int(np.load(os.path.join(HERE, "sps_torch", "assets", "loc_movers_v2_pin.npz"))
+                    ["scans"])
+    movers_root = movers_data(pin_scans)
+    try:
+        trained = phase_trained(card, movers_root)
+        gate = phase_gate(card)
+        predict_trained = phase_predict_trained(card, movers_root)
+    finally:
+        shutil.rmtree(movers_root, ignore_errors=True)
+    predict_blt, replay = phase_predict_blt(card, shipped, sd, stable, data, profile)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -1339,7 +1706,11 @@ def main() -> int:
         "halo_form_same_operands_ms": g["halo_form_ms"],
         "halo_conv3d_bf16_ms": g["halo_conv3d_bf16_ms"],
         "path_num_bricks": ship["num_bricks"],
-        "loop_launches": {k: r["launches"] for k, r in loop.items()}, "calls": gather_calls,
+        "loop_launches": {k: r["launches"] for k, r in loop.items()},
+        "offline_launches": {**{f"gate_{k}": r["launches"] for k, r in gate.items()},
+                             "predict_blt": predict_blt["launches"],
+                             "replay": replay["launches"]},
+        "calls": gather_calls,
         "halo_form": {
             "name": "brick_conv_int8", "source": os.path.relpath(bi8.SOURCE, HERE),
             "replaces": REPLACES["brick_conv_int8"],
@@ -1351,7 +1722,12 @@ def main() -> int:
         f"shipping p50 {ship['p50']:.2f} ms, peak {ship['peak'] / 2**30:.2f} GiB; loop p50 "
         f"{loop['refine']['p50']:.2f} ms (refine), {loop['norefine']['p50']:.2f} ms (no refine); "
         f"trained ATE 20220629 sps {trained['20220629/sps']['ate']:.4f} m, raw "
-        f"{trained['20220629/raw']['ate']:.4f} m")
+        f"{trained['20220629/raw']['ate']:.4f} m; gate uIoU " + ", ".join(
+            f"{k} {v['uiou']:.5f}" for k, v in gate.items())
+        + f"; predict dIoU v1 {predict_trained['v1']['means']['dIoU']:.4f}, v2 "
+        f"{predict_trained['v2']['means']['dIoU']:.4f}; BLT predict p50 {predict_blt['p50']:.2f} "
+        f"ms, peak {predict_blt['peak'] / 2**30:.2f} GiB; replay p50 "
+        f"{replay['summary']['p50_latency_s'] * 1e3:.2f} ms")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 """Export what the PyTorch port (sps_torch) needs from the JAX package and
 its checkpoints: files the port reads without JAX, flax or orbax.
 
-    JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20] [--only ckpt,loc,loop]
+    JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
+        [--only ckpt,loc,loop,ckpt_v1,parity,predict]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -25,9 +26,28 @@ Writes, under sps_torch/assets/:
                                   tests/test_torch_loop.py (whose JAX program
                                   takes longer to compile than that test may
                                   run): per-scan poses, keeps and stats, with the
-                                  port's seeded weights.
+                                  port's seeded weights;
+  ckpt_loc_movers.npz             the movers checkpoint ckpt_loc_movers/best (v1),
+  ckpt_loc_movers.config.json     flattened as the v2 one;
+  int8_parity_pin.npz             sps_tpu's run of the gate of
+                                  tests/test_int8_parity.py: six scans of 20220608
+                                  generated alone with that test's generate_dense
+                                  arguments, config_loc_movers.yaml, the v1
+                                  checkpoint, epsilon 0.9, StreamingFilter three
+                                  times (float, INT8, INT8 + HEAD_FOLD): per-scan
+                                  scores and valid masks, and TP/FP/FN summed over
+                                  the scans (score > eps against label > eps) with
+                                  their uIoU TP / (TP + FN + FP), per run;
+  predict_pin.npz                 sps_tpu's eval.predict_step over the first
+                                  --scans scans of 20220629 of the movers dataset:
+                                  v1 under config_loc_movers.yaml and v2 under
+                                  config_loc_movers_v2.yaml (the distance
+                                  feature): per-scan Loss/R2/dIoU/Precision/
+                                  Recall/F1, overflow flags, and the scan rows'
+                                  scores.
 
-Runs on the CPU in a few minutes (--scans 20).
+Runs on the CPU: ckpt and loop in a few minutes, loc ~14 min (--scans 20),
+parity and predict several minutes each (bf16 on XLA:CPU is slow).
 """
 
 from __future__ import annotations
@@ -47,6 +67,7 @@ import numpy as np  # noqa: E402
 
 ASSETS = os.path.join(HERE, "sps_torch", "assets")
 CKPT = os.path.join(HERE, "ckpt_loc_movers_v2", "best")
+CKPT_V1 = os.path.join(HERE, "ckpt_loc_movers", "best")
 LOC_SEQS = ("20220629", "20220629_clean")
 LOC_FILTERS = ("raw", "sps", "oracle")
 LOC_EPS = 0.99  # calibration.json's epsilon_ate
@@ -57,6 +78,15 @@ LOOP_WORLD = dict(sequences=("20220629",), scans_per_seq=4, seed=3, extent=10.0,
 LOOP_TPU = dict(engine="atlas", topo_every=4)
 LOOP_NARROW = dict(init_dim=4, planes=(4, 8, 8, 8, 8, 8, 8, 4))
 LOOP_SEED = 0
+# tests/test_int8_parity.py's gate: its world (sps_torch.data.synthetic.
+# PARITY, a copy of that test's generate_dense arguments) and epsilon.
+PARITY_EPS = 0.9
+PARITY_RUNS = {"float": {}, "int8": dict(int8=True), "int8_head_fold": dict(int8=True,
+                                                                             head_fold=True)}
+PREDICT_SEQ = "20220629"
+PREDICT_RUNS = {"v1": (CKPT_V1, "config_loc_movers.yaml"),
+                "v2": (CKPT, "config_loc_movers_v2.yaml")}
+PREDICT_METRICS = ("Loss", "R2", "dIoU", "Precision", "Recall", "F1")
 
 
 def log(msg):
@@ -75,20 +105,20 @@ def flat_tree(tree, prefix=""):
     return out
 
 
-def restore_variables():
+def restore_variables(path=CKPT):
     from sps_tpu.utils import checkpoint as ckpt
 
-    r = ckpt.restore(CKPT)
+    r = ckpt.restore(path)
     return {"params": r["params"], "batch_stats": r["batch_stats"]}
 
 
-def export_checkpoint():
-    variables = restore_variables()
+def export_checkpoint(path=CKPT, name="ckpt_loc_movers_v2"):
+    variables = restore_variables(path)
     flat = flat_tree(variables)
-    np.savez(os.path.join(ASSETS, "ckpt_loc_movers_v2.npz"), **flat)
-    shutil.copyfile(CKPT + ".config.json", os.path.join(ASSETS, "ckpt_loc_movers_v2.config.json"))
+    np.savez(os.path.join(ASSETS, name + ".npz"), **flat)
+    shutil.copyfile(path + ".config.json", os.path.join(ASSETS, name + ".config.json"))
     n = sum(v.size for k, v in flat.items() if k.startswith("params/"))
-    log(f"checkpoint: {len(flat)} leaves, {n} parameters")
+    log(f"checkpoint {name}: {len(flat)} leaves, {n} parameters")
 
 
 def movers_dataset(root, scans):
@@ -157,6 +187,109 @@ def export_loc_pin(scans):
         for k in ("overflow", "n_scan_voxels", "n_submap_voxels", "n_kept"):
             out[f"first_scan/{k}"] = np.int64(int(stats[k]))
         np.savez(os.path.join(ASSETS, "loc_movers_v2_pin.npz"), **out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def padded(scan, ns):
+    """A scan (N, 4) -> (xyz, labels, valid) padded to ns rows."""
+    n = min(len(scan), ns)
+    sx = np.zeros((ns, 3), np.float32)
+    sl = np.zeros(ns, np.float32)
+    sv = np.zeros(ns, bool)
+    sx[:n], sl[:n], sv[:n] = scan[:n, :3], scan[:n, 3], True
+    return sx, sl, sv
+
+
+def export_parity_pin():
+    import jax.numpy as jnp
+
+    from sps_tpu import config as cfg_mod
+    from sps_tpu.data import blt
+    from sps_tpu.data import synthetic as jsyn
+    from sps_tpu.stream.engine import StreamingFilter
+    from sps_torch.data import synthetic as tsyn
+
+    root = tempfile.mkdtemp(prefix="parity_")
+    try:
+        jsyn.generate_dense(root, **tsyn.PARITY)
+        base = cfg_mod.load(os.path.join(HERE, "config", "config_loc_movers.yaml"),
+                            data_root=root)
+        variables = restore_variables(CKPT_V1)
+        scans, poses = blt.load_sequences_raw(root, list(tsyn.PARITY["sequences"]))
+        mp = blt.load_map(root, base.data.map_file)
+        ns = base.tpu.scan_points
+        out = {"epsilon": np.float64(PARITY_EPS), "scans": np.int64(len(scans))}
+        for run, opts in PARITY_RUNS.items():
+            cfg = dataclasses.replace(base, tpu=dataclasses.replace(base.tpu, **opts))
+            filt = StreamingFilter(cfg, variables, mp)
+            t = time.time()
+            tp = fp = fn = 0
+            scores_all, valid_all = [], []
+            for scan, pose in zip(scans, poses):
+                sx, sl, sv = padded(scan, ns)
+                scores, _, _ = filt(sx, sv, sl, pose.astype(np.float32))
+                s = np.asarray(jnp.asarray(scores), np.float32)
+                pred, true = s[sv] > PARITY_EPS, sl[sv] > PARITY_EPS
+                tp += int((pred & true).sum())
+                fp += int((pred & ~true).sum())
+                fn += int((~pred & true).sum())
+                scores_all.append(s)
+                valid_all.append(sv)
+            uiou = tp / max(tp + fn + fp, 1)
+            out.update({f"{run}/scores": np.stack(scores_all), f"{run}/tp": np.int64(tp),
+                        f"{run}/fp": np.int64(fp), f"{run}/fn": np.int64(fn),
+                        f"{run}/uiou": np.float64(uiou)})
+            out["valid"] = np.stack(valid_all)
+            log(f"parity {run}: uIoU {uiou:.5f} (TP {tp}, FP {fp}, FN {fn}; "
+                f"{time.time() - t:.0f} s)")
+        np.savez_compressed(os.path.join(ASSETS, "int8_parity_pin.npz"), **out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def export_predict_pin(scans):
+    import jax.numpy as jnp
+
+    from sps_tpu import config as cfg_mod
+    from sps_tpu import register as reg
+    from sps_tpu.data.blt import BLTDataModule
+    from sps_tpu.eval import predict_step
+
+    root = tempfile.mkdtemp(prefix="predict_")
+    try:
+        movers_dataset(root, scans)
+        out = {"scans": np.int64(scans)}
+        for tag, (ckpt_path, cfg_name) in PREDICT_RUNS.items():
+            cfg = cfg_mod.load(os.path.join(HERE, "config", cfg_name), data_root=root)
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                    test=(PREDICT_SEQ,)))
+            variables = restore_variables(ckpt_path)
+            data = BLTDataModule(cfg, test=True)
+            map_points = jnp.asarray(data.map_points)
+            map_vm = (reg.build_voxel_map(np.asarray(data.map_points),
+                                          voxel_size=4 * cfg.voxel_size)
+                      if cfg.dist_feature else None)
+            rows = {k: [] for k in PREDICT_METRICS + ("overflow",)}
+            scores_all, valid_all = [], []
+            t = time.time()
+            ns = cfg.tpu.scan_points
+            for batch in data.batches(data.test, 1, shuffle=False):
+                hb = {k: jnp.asarray(v) for k, v in batch.items() if k != "indices"}
+                scores, _, m = predict_step(variables, hb, map_points, map_vm, cfg=cfg)
+                for k in rows:
+                    rows[k].append(np.asarray(m[k]))
+                scores_all.append(np.asarray(scores, np.float32)[:ns])
+                valid_all.append(batch["valid"][0])
+            for k, v in rows.items():
+                out[f"{tag}/{k}"] = np.asarray(v)
+            out[f"{tag}/scores"] = np.stack(scores_all)
+            out[f"{tag}/valid"] = np.stack(valid_all)
+            out[f"{tag}/threshold"] = np.float64(cfg.threshold)
+            log(f"predict {tag}: " + ", ".join(
+                f"{k} {np.mean(rows[k]):.4f}" for k in PREDICT_METRICS)
+                + f", overflow {int(np.sum(rows['overflow']))} scans ({time.time() - t:.0f} s)")
+        np.savez_compressed(os.path.join(ASSETS, "predict_pin.npz"), **out)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -243,9 +376,9 @@ def export_loop_pin():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
-                    help="scans per movers sequence for the localization pin (>= 20)")
-    ap.add_argument("--only", default="ckpt,loc,loop",
-                    help="comma-separated subset of ckpt, loc, loop")
+                    help="scans per movers sequence for the localization and predict pins (>= 20)")
+    ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict",
+                    help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, predict")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -255,6 +388,12 @@ def main(argv=None):
         export_loop_pin()
     if "loc" in parts:
         export_loc_pin(args.scans)
+    if "ckpt_v1" in parts:
+        export_checkpoint(CKPT_V1, "ckpt_loc_movers")
+    if "parity" in parts:
+        export_parity_pin()
+    if "predict" in parts:
+        export_predict_pin(args.scans)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ numpy only).
 The on-disk layout: sequences under $DATA/sequence/<SEQ>/{scans,poses,
 map_transform}, the base map under $DATA/maps/. Scans are .npy (N, 4)
 float32 [x, y, z, label] in the sensor frame; a scan's ground-truth pose is
-map_transform @ pose.
+map_transform @ pose. load_sequences and BLTDataModule give the offline
+predict path its scans posed into the map frame and padded to SCAN_POINTS.
 """
 
 from __future__ import annotations
@@ -20,6 +21,39 @@ def _load_npy_f32(path: str) -> np.ndarray:
 
 def _pose(path: str) -> np.ndarray:
     return np.loadtxt(path, delimiter=",")
+
+
+class SequenceData:
+    """Scans of one split in the map frame, as host numpy arrays."""
+
+    def __init__(self, scans: list[np.ndarray]):
+        self.scans = scans  # each (N_i, 4): [x, y, z, label], map frame
+
+    def __len__(self):
+        return len(self.scans)
+
+
+def _apply(tr: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    return pts @ tr[:3, :3].T + tr[:3, 3]
+
+
+def load_sequences(root: str, seqs) -> SequenceData:
+    """Every scan of `seqs`, posed (pose, then map_transform) into the map
+    frame in float64 and stored as float32."""
+    scans = []
+    for seq in seqs:
+        sdir = os.path.join(root, "sequence", seq)
+        names = sorted(os.listdir(os.path.join(sdir, "scans")))
+        pnames = sorted(os.listdir(os.path.join(sdir, "poses")))
+        if len(names) != len(pnames):
+            raise ValueError(f"scan/pose count mismatch in {seq}")
+        map_tr = _pose(os.path.join(sdir, "map_transform"))
+        for sn, pn in zip(names, pnames):
+            scan = _load_npy_f32(os.path.join(sdir, "scans", sn))
+            pose = _pose(os.path.join(sdir, "poses", pn))
+            scan[:, :3] = _apply(map_tr, _apply(pose, scan[:, :3]))
+            scans.append(scan)
+    return SequenceData(scans)
 
 
 def load_sequences_raw(root: str, seqs) -> tuple[list[np.ndarray], list[np.ndarray]]:
@@ -57,3 +91,43 @@ def load_map(root: str, map_file: str) -> np.ndarray:
     path = os.path.join(root, "maps", map_file)
     arr = _load_npy_f32(path) if path.endswith(".npy") else np.loadtxt(path, dtype=np.float32)
     return np.ascontiguousarray(arr[:, :3], dtype=np.float32)
+
+
+class BLTDataModule:
+    """A split's scans and the map, batched into padded host arrays."""
+
+    def __init__(self, cfg, test: bool = False):
+        self.cfg = cfg
+        root = cfg.data.root
+        if not root:
+            raise ValueError("dataset root not set ($DATA or --data)")
+        self.map_points = load_map(root, cfg.data.map_file)
+        if test:
+            self.test = load_sequences(root, cfg.data.test)
+        else:
+            self.train = load_sequences(root, cfg.data.train)
+            self.val = load_sequences(root, cfg.data.val)
+
+    def batches(self, data: SequenceData, batch_size: int, shuffle: bool, seed: int = 0):
+        """Yield dicts of (B, SCAN_POINTS, ...) padded arrays (the last batch
+        padded with empty samples, so shapes never change) and the scans'
+        indices."""
+        ns = self.cfg.tpu.scan_points
+        idx = np.arange(len(data))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        for i in range(0, len(idx), batch_size):
+            sel = idx[i : i + batch_size]
+            xyz = np.zeros((batch_size, ns, 3), np.float32)
+            label = np.zeros((batch_size, ns), np.float32)
+            valid = np.zeros((batch_size, ns), bool)
+            for b, j in enumerate(sel):
+                scan = data.scans[j]
+                if len(scan) > ns:
+                    raise ValueError(f"scan {j} has {len(scan)} points > capacity {ns}; "
+                                     "raise TPU.SCAN_POINTS")
+                n = len(scan)
+                xyz[b, :n] = scan[:, :3]
+                label[b, :n] = scan[:, 3]
+                valid[b, :n] = True
+            yield {"xyz": xyz, "label": label, "valid": valid, "indices": sel}

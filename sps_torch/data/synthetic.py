@@ -343,3 +343,10 @@ MOVERS = dict(sequences=("20220420", "20220601", "20220608", "20220629", "202206
               seed=0, extent=12.0, n_stable=14, map_density=140.0,
               scan_density=9.0, clutter_boxes=10, growth_boxes=4, mover_boxes=3,
               clean_sequences=("20220629_clean",))
+
+# The world of the int8 parity gate (tests/test_int8_parity.py): the movers
+# recipe's generator settings with 20220608 generated alone, so its seed is
+# seed + 1000 + 0 and its scans differ from MOVERS's 20220608 (index 2).
+PARITY = dict(sequences=("20220608",), scans_per_seq=6, seed=0, extent=12.0, n_stable=14,
+              map_density=140.0, scan_density=9.0, clutter_boxes=10, growth_boxes=4,
+              mover_boxes=3)

@@ -2,9 +2,10 @@
 
 Points -> per-point stability in [0, 1]: voxelize into atlas bricks,
 build the topology pyramid, MinkUNet(in=1, out=1, D=4) on the constant
-0.5 input feature, devoxelize, sigmoid. The model runs in the levels/p2v
-entry mode: the streaming engine (and build_pyramid, for batches) builds
-the pyramid outside the module.
+0.5 input feature, devoxelize, sigmoid. Two entry modes: a PointBatch
+(the offline predict path: the model calls build_pyramid), or a prebuilt
+pyramid with levels/p2v (the streaming engine builds it outside the
+module).
 """
 
 from __future__ import annotations
@@ -77,13 +78,22 @@ class SPSModel(nn.Module):
         self.cfg = cfg
         self.MinkUNet = MinkUNet(cfg.unet, generator)
 
-    def forward(self, *, levels, p2v, t_idx, valid, point_dist=None):
+    def forward(self, pb: PointBatch | None = None, *, levels=None, p2v=None, t_idx=None,
+                valid=None, point_dist=None):
         """Returns (scores, aux): (N,) sigmoid stability scores (0 for padded
-        points) and a dict with the per-level overflow flags. point_dist:
-        (N,) distance to the map per point (the dist_feature input; 0 when
-        None)."""
+        points) and a dict with the per-level overflow flags. With `pb` the
+        model voxelizes the batch itself (t_idx, valid and point_dist from
+        it); otherwise levels/p2v/t_idx/valid give a prebuilt pyramid.
+        point_dist: (N,) distance to the map per point (the dist_feature
+        input; 0 when None)."""
         cfg = self.cfg
-        overflow = torch.stack([lv.grid.overflow for lv in levels])
+        if pb is not None:
+            levels, p2v, overflow = build_pyramid(pb, cfg)
+            t_idx, valid = pb.t, pb.valid
+            if point_dist is None:
+                point_dist = pb.dist
+        else:
+            overflow = torch.stack([lv.grid.overflow for lv in levels])
         occ0 = levels[0].grid.occ
         if cfg.dist_feature:
             feats0 = self._dist_feats(occ0, p2v, t_idx, valid, point_dist)

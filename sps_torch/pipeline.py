@@ -1,0 +1,77 @@
+"""Offline batch assembly: scan -> submap join -> one flat PointBatch
+(counterpart of sps_tpu/pipeline.py).
+
+Per sample: find the map points near the scan (the dense radius join),
+compact them into SUBMAP_POINTS slots, and stack [scan (t = 1, its labels) ;
+submap (t = 0, label 1)] into the flat padded PointBatch the model's
+PointBatch entry takes. Everything stays on the device of the inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sps_torch import register as reg
+from sps_torch.config import Config
+from sps_torch.ops import radius as rad
+from sps_torch.structs import PointBatch
+
+SCAN_T = 1
+MAP_T = 0
+
+
+def assemble_batch(scan_xyz, scan_label, scan_valid, map_points, cfg: Config, rng=None,
+                   map_vm=None) -> tuple[PointBatch, dict]:
+    """(B, Ns, 3) map-frame scans, (B, Ns) labels and validity, (M, 3) map
+    points -> (PointBatch of capacity B * (Ns + SUBMAP_POINTS), aux
+    counters: submap_overflow, cell_dropped, submap_count as int32 counts).
+
+    map_vm (a register.VoxelMap) adds each point's distance to the map,
+    uncapped beyond 1.0 as offline. rng (augmentation) belongs to training,
+    which is not ported yet."""
+    if rng is not None:
+        raise NotImplementedError("augmentation belongs to training (ROADMAP module item 5)")
+    if cfg.tpu.join_mode != "dense":
+        rad.radius_join()
+    bsz, ns, _ = scan_xyz.shape
+    sub = cfg.tpu.submap_points
+    dev = scan_xyz.device
+    map_valid = torch.ones(map_points.shape[0], dtype=torch.bool, device=dev)
+    sub_xyz, sub_valid, overflow, dropped = [], [], [], []
+    for b in range(bsz):
+        mask, drop = rad.radius_join_dense(scan_xyz[b], scan_valid[b], map_points, map_valid,
+                                           cfg.voxel_size, extent=cfg.tpu.join_extent)
+        idx, sv, ovf = rad.compact_mask(mask, sub)
+        sub_xyz.append(map_points[idx.long()] * sv[:, None].to(map_points.dtype))
+        sub_valid.append(sv)
+        overflow.append(ovf)
+        dropped.append(drop)
+    sub_xyz, sub_valid = torch.stack(sub_xyz), torch.stack(sub_valid)
+    xyz = torch.cat([scan_xyz, sub_xyz], 1)  # (B, Ns + Sub, 3)
+    valid = torch.cat([scan_valid, sub_valid], 1)
+    dist = None
+    if map_vm is not None:
+        # Before any augmentation: the feature is the map support of the
+        # original geometry. Submap points are map points (distance ~0).
+        dist = torch.stack([reg.point_map_distance(map_vm, xyz[b], valid[b])
+                            for b in range(bsz)])
+    # Submap labels are constant 1.
+    label = torch.cat([scan_label, torch.ones((bsz, sub), dtype=scan_label.dtype, device=dev)],
+                      1)
+    t = torch.cat([torch.full((bsz, ns), SCAN_T, dtype=torch.int32, device=dev),
+                   torch.full((bsz, sub), MAP_T, dtype=torch.int32, device=dev)], 1)
+    batch_idx = torch.arange(bsz, dtype=torch.int32, device=dev)[:, None].expand(bsz, ns + sub)
+    flat = PointBatch(
+        xyz=xyz.reshape(-1, 3),
+        batch=batch_idx.reshape(-1),
+        t=t.reshape(-1),
+        label=label.reshape(-1),
+        valid=valid.reshape(-1),
+        dist=dist.reshape(-1) if dist is not None else None,
+    )
+    aux = {
+        "submap_overflow": torch.stack(overflow).sum(dtype=torch.int32),
+        "cell_dropped": torch.stack(dropped).sum(dtype=torch.int32),
+        "submap_count": sub_valid.sum(dtype=torch.int32),
+    }
+    return flat, aux

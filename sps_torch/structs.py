@@ -30,6 +30,9 @@ class PointBatch(NamedTuple):
     t: torch.Tensor  # (N,) int32 time slot (SPS: scan=1, map=0)
     label: torch.Tensor  # (N,) float32 stability label in [0, 1]
     valid: torch.Tensor  # (N,) bool
+    # Per-point distance to the map (the dist_feature input), computed before
+    # any augmentation; None when the feature is off.
+    dist: torch.Tensor | None = None  # (N,) float32
 
     @property
     def capacity(self) -> int:

@@ -40,9 +40,10 @@ def test_every_module_imports_with_jax_blocked():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     mods = r.stdout.split()
-    assert len(mods) >= 19
+    assert len(mods) >= 35
     for m in ("register", "stream.loop", "stream.localize", "data.blt", "data.synthetic",
-              "convert", "stream.engine"):
+              "convert", "stream.engine", "pipeline", "eval", "ops.radius", "data.prefetch",
+              "stream.replay", "scripts.predict"):
         assert f"sps_torch.{m}" in mods, m
 
 
@@ -92,3 +93,37 @@ def test_new_entry_points_default_to_the_card(entry):
             "run_localization": lambda: run_localization(cfg, {}, "20220629", "raw")}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+@pytest.mark.parametrize("entry", ["predict_sequence", "replay_sequence"])
+def test_offline_entry_points_default_to_the_card(entry, tmp_path):
+    """predict_sequence and replay_sequence (the prefetcher's consumer) run
+    on the card unless device="cpu" is passed: with no card they raise
+    before reading any data."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sps_torch import config
+    from sps_torch.eval import predict_sequence
+    from sps_torch.stream.replay import replay_sequence
+
+    cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"), data_root=str(tmp_path))
+    call = {"predict_sequence": lambda: predict_sequence(cfg, {}),
+            "replay_sequence": lambda: replay_sequence(cfg, {}, "20220629")}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+def test_assemble_batch_stays_on_its_inputs_device():
+    """assemble_batch runs where its inputs are; its callers pick the device."""
+    import dataclasses
+
+    from sps_torch import config, pipeline
+
+    cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"))
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, submap_points=16, join_extent=(8, 8, 8)))
+    x = torch.rand((1, 8, 3))
+    pb, aux = pipeline.assemble_batch(x, torch.zeros(1, 8), torch.ones(1, 8, dtype=torch.bool),
+                                      torch.rand(20, 3), cfg)
+    assert pb.xyz.device.type == "cpu" and pb.xyz.shape == (24, 3)
+    assert all(v.device.type == "cpu" for v in aux.values())
