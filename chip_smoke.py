@@ -110,6 +110,30 @@ Phases, each of which raises (and exits non-zero) on failure:
               stream.replay.replay_sequence over the same sequence, every
               filter call under sync debug mode "error", its scores and keeps
               bit-equal to a fresh StreamingFilter called directly.
+  10. train - (10a) zband_conv under autograd with the kernel forward
+              against autograd through its plain version (outputs, d_hz,
+              d_wz) at the stem's shape (wgmma_k5, B = the batch-2 L0
+              capacity), a block8 shape (wgmma) and a ragged f32 shape
+              (wmma), the kernel forward and the plain backward timed; the
+              halo / halo_z backward (the gather-transpose) on the card
+              against the CPU at pads 1 and 2; zband_conv_fused refusing a
+              gradient; (10b) sps_tpu's pinned training step
+              (sps_torch/assets/train_step_pin.npz) on the card in f32, each
+              record (MSE, STEM_ZBAND, BCE, STABLE_WEIGHT), at the CPU test's
+              tolerances; (10c) train.fit at config/config.yaml as shipped
+              (full width, atlas, halo, bf16, batch 2, augmentation) on phase
+              6's scans written to disk as config.yaml's splits (8 train, 2
+              val): an epoch and a validation, a resume for one step,
+              predict_sequence from best; step p50, peak memory, losses,
+              overflow, no zband_conv_fused or int8 launch in any training
+              step; a profile of two steps (kernel time and launches a
+              step); 8 steps on one batch without augmentation (LR 1e-3),
+              whose loss must fall; (10d) three training steps with
+              STEM_ZBAND (one wgmma_k5 launch each), the streaming filter at
+              config.yaml + STEM_ZBAND on phase 6's scans (one wgmma_k5
+              launch a scan, scores within 0.05 of phase 6's), the stem's
+              times (halo() + cuDNN conv3d against halo_z + the kernel) and
+              both filters' kernel time a scan.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -1585,6 +1609,520 @@ def phase_predict_blt(card, shipped, sd, stable, data, profile):
     return blt_out, dict(summary=summary, launches=replay_launches)
 
 
+# Phase 10: training. The train-step pin's tolerances (tests/test_torch_train_step.py's,
+# f32 with TF32 off): loss and r2 rtol 1e-5; each gradient leaf within 1e-4 of its
+# max |grad|; running statistics atol 1e-6 (1e-4 after 3 steps); each leaf's
+# displacement from the initial weights within 1% (relative L2), every weight within
+# 2 * sum(lr), and after one step weights whose effective gradient exceeds 1e-5
+# within 1e-6.
+PIN_LOSS_RTOL, PIN_GRAD_TOL = 1e-5, 1e-4
+# The BLT-scale training data: phase 6's ten scans as config.yaml's splits.
+TRAIN_SPLITS = {"20220420": range(0, 4), "20220601": range(4, 8), "20220608": range(8, 10)}
+FIXED_BATCH_STEPS, FIXED_BATCH_LR = 8, 1e-3
+
+
+def zband_grad_case(tag, c, route, seed):
+    """zband_conv's autograd with the kernel forward against autograd through
+    the plain version on f32 copies of the same operands, with the same
+    cotangent: outputs, d_hz and d_wz, bf16 within 2e-2 of each reference's
+    max-abs (one rounding of an f32 sum), f32 within 1e-4 of it.
+    Returns (max error over the three, the kernel forward's ms, the plain
+    backward's ms)."""
+    import torch
+
+    from sps_torch.ops import zband_conv as zc
+
+    k, bs = c["k"], c["bs"]
+    hz = c["hz"].clone().requires_grad_(True)
+    wz = c["wz"].clone().requires_grad_(True)
+    before = dict(zc.ROUTE_LAUNCHES["zband_conv"])
+    out = zc.zband_conv(hz, wz, k, bs)
+    taken = [r for r, n in zc.ROUTE_LAUNCHES["zband_conv"].items() if n != before[r]]
+    if taken != [route]:
+        raise AssertionError(f"10a {tag}: routes {taken}, expected {route}")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    out.backward(dout)
+    hz2 = c["hz"].float().requires_grad_(True)
+    wz2 = c["wz"].float().requires_grad_(True)
+    out2 = zc.zband_conv_ref(hz2, wz2, k, bs)
+    out2.backward(dout.float())
+    torch.cuda.synchronize()
+    bar = 2e-2 if c["hz"].dtype == torch.bfloat16 else 1e-4
+    worst = 0.0
+    for what, a, b in (("out", out, out2), ("d_hz", hz.grad, hz2.grad),
+                       ("d_wz", wz.grad, wz2.grad)):
+        err = float((a.detach().float() - b.detach()).abs().max())
+        scale = float(b.detach().abs().max())
+        log(f"  zband_conv grad {tag:34s} {route:8s} {what:4s} max_abs_err {err:.3e} "
+            f"(max-abs {scale:.3e}; bar {bar:g} x max-abs)")
+        if not err <= bar * max(scale, 1e-6):
+            raise AssertionError(f"10a {tag}: {what} of the kernel forward disagrees")
+        worst = max(worst, err)
+    fwd_ms = time_ms(lambda: zc.zband_conv(c["hz"], c["wz"], k, bs), runs=10, warmup=2)
+    bwd_ms = time_ms(lambda: zc.zband_conv_bwd(c["hz"], c["wz"], dout, k, bs), runs=5,
+                     warmup=1)
+    return worst, fwd_ms, bwd_ms
+
+
+def phase_train_kernels(card, bricks):
+    """10a: the kernels under autograd, the halo backward card vs CPU, and
+    zband_conv_fused refusing a gradient."""
+    import torch
+
+    from sps_torch.ops import atlas as atl
+    from sps_torch.ops import brick as bk
+    from sps_torch.ops import zband_conv as zc
+
+    log("phase 10a: gradients of the kernels (zband_conv under autograd, halo backward)")
+    reset_counts()
+    b0 = bricks[0]
+    cases = [  # (tag, make_case arguments, route)
+        (f"stem k=5 B={b0} bf16", (5, 8, 2, 16, b0, torch.bfloat16), "wgmma_k5"),
+        ("block8 k=3 B=2048 bf16", (3, 8, 32, 16, 2048, torch.bfloat16), "wgmma"),
+        ("ragged k=3 bs=4 B=5 f32", (3, 4, 2, 3, 5, torch.float32), "wmma"),
+    ]
+    out = {}
+    for i, (tag, args, route) in enumerate(cases):
+        c = make_case(*args, seed=100 + i, with_res=False)
+        err, fwd_ms, bwd_ms = zband_grad_case(tag, c, route, seed=200 + i)
+        out[tag] = dict(route=route, max_abs_err=err, fwd_ms=fwd_ms, plain_bwd_ms=bwd_ms)
+        log(f"  {tag}: kernel forward {fwd_ms:.3f} ms, plain backward (d_hz and d_wz) "
+            f"{bwd_ms:.3f} ms [{card}]")
+    # The halo backward: the gather-transpose on the card against the CPU, f32.
+    rng = np.random.default_rng(0)
+    n = 20000
+    coords = torch.as_tensor(rng.integers(-60, 60, size=(n, 3)).astype(np.int32))
+    grid, _ = atl.voxelize_bricks(coords, torch.zeros(n, dtype=torch.int32),
+                                  torch.as_tensor(rng.integers(0, 2, n).astype(np.int32)),
+                                  torch.ones(n, dtype=torch.bool), num_time=2,
+                                  brick_capacity=4096, brick_side=8, extent=(1, 16, 16, 16))
+    lv = atl.build_levels(grid, num_levels=1, capacities=(4096,))[0]
+    nb = int(grid.num_bricks)
+    if not 0 < nb < lv.nbr27.shape[1] or bool(grid.overflow):
+        raise AssertionError("10a: the halo test grid overflowed")
+    for pad in (1, 2):
+        for folded in (False, True):
+            x = torch.as_tensor(rng.normal(size=(lv.nbr27.shape[1], 8, 8, 8, 4)).astype(np.float32))
+            x[nb:] = 0
+            if folded:
+                x = x.reshape(x.shape[0], 8, 8, 32)
+            grads = []
+            for dev in ("cpu", "cuda"):
+                xt = x.to(dev).detach().clone().requires_grad_(True)
+                nbr = lv.nbr27.to(dev)
+                y = bk.halo_z(xt, nbr, pad, 4) if folded else bk.halo(xt, nbr, pad)
+                if type(y.grad_fn).__name__ != "_SymmetricHaloBackward":
+                    raise AssertionError("10a: halo took autograd's scatter, not its transpose")
+                gy = torch.as_tensor(np.random.default_rng(pad).normal(size=y.shape)
+                                     .astype(np.float32)).to(dev)
+                y.backward(gy)
+                grads.append(xt.grad.cpu())
+            err = float((grads[0] - grads[1]).abs().max())
+            log(f"  halo{'_z' if folded else ''} backward pad {pad}, {nb} bricks: card vs CPU "
+                f"max_abs_err {err:.3e} (bar 1e-6)")
+            if not err <= 1e-6:
+                raise AssertionError("10a: the halo backward differs between card and CPU")
+    c = make_case(3, 4, 2, 2, 4, torch.float32, seed=9)
+    hz = c["hz"].clone().requires_grad_(True)
+    try:
+        zc.zband_conv_fused(hz, c["wz"], c["scale"], c["bias"], c["occ"], c["res"], k=3, bs=4)
+    except RuntimeError as e:
+        log(f"  zband_conv_fused under a gradient raises: {e}")
+    else:
+        raise AssertionError("10a: zband_conv_fused ran with a gradient required")
+    counts = read_counts()
+    log(f"  launches in 10a: {counts}")
+    if counts["zband_conv_fused"] != dict.fromkeys(zc.ROUTES, 0):
+        raise AssertionError("10a: zband_conv_fused launched")
+    return out
+
+
+def pin_tree(z, prefix):
+    out: dict = {}
+    for k in z.files:
+        if k.startswith(prefix + "/"):
+            *parents, leaf = k[len(prefix) + 1:].split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[k]
+    return out
+
+
+def pin_flat(z, prefix):
+    return {k[len(prefix) + 1:].replace("/", "."): z[k] for k in z.files
+            if k.startswith(prefix + "/")}
+
+
+def pin_config(meta, record):
+    """config_small.yaml with the pin's overrides and narrow widths."""
+    from sps_torch import config
+
+    def tuples(d):
+        return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+    tpu, hp, _ = meta["records"][record]
+    cfg = config.load(os.path.join(HERE, "config", "config_small.yaml"))
+    cfg = dataclasses.replace(
+        cfg, voxel_size=meta["voxel_size"],
+        tpu=dataclasses.replace(cfg.tpu, **tuples({**meta["tpu"], **tpu})),
+        train=dataclasses.replace(cfg.train, **tuples({**meta["train"], **hp})))
+    narrow = tuples(meta["narrow"])
+
+    class Narrow(type(cfg)):
+        def sps_config(self, batch_size=None):
+            s = super().sps_config(batch_size)
+            return dataclasses.replace(s, unet=dataclasses.replace(s.unet, **narrow))
+
+    return Narrow(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+def check_pin_params(sd, init, want, grads, lr_sum, first_step, tag):
+    worst = 0.0
+    for name, w in want.items():
+        got, w0 = sd[name].cpu().numpy(), init[name].numpy()
+        moved = w - w0
+        rel = float(np.linalg.norm((got - w0) - moved) / max(np.linalg.norm(moved), 1e-30))
+        worst = max(worst, rel)
+        if rel > 1e-2 or np.abs(got - w).max() > 2 * lr_sum:
+            raise AssertionError(f"10b {tag}: {name} moved differently ({rel:.3e})")
+        if first_step:
+            big = np.abs(grads[name] + 1e-4 * w0) >= 1e-5
+            if big.any() and np.abs(got[big] - w[big]).max() > 1e-6:
+                raise AssertionError(f"10b {tag}: {name} differs where Adam is well posed")
+    return worst
+
+
+def phase_train_pin(card):
+    """10b: sps_tpu's pinned training step (train_step_pin.npz) on the card
+    in f32: loss, gradients, running statistics, weights after 1 and 3 Adam
+    steps, for each of the pin's records."""
+    import torch
+
+    from sps_torch import train
+    from sps_torch.convert import state_dict_from_jax
+    from sps_torch.ops import zband_conv as zc
+
+    log("phase 10b: the train-step pin on the card (f32, TF32 off)")
+    z = np.load(os.path.join(HERE, "sps_torch", "assets", "train_step_pin.npz"))
+    meta = json.loads(str(z["meta"]))
+    batch = {k: torch.as_tensor(z[f"batch/{k}"], device="cuda") for k in ("xyz", "label", "valid")}
+    mp = torch.as_tensor(z["map"], device="cuda")
+    out = {}
+    for record, (_, _, steps) in meta["records"].items():
+        cfg = pin_config(meta, record)
+        state = train.create_state(cfg, 0, steps_per_epoch=1, device="cuda")
+        init = state_dict_from_jax(pin_tree(z, f"{record}/init"))
+        state.model.load_state_dict(init, strict=True)
+        reset_counts()
+        lrs = []
+        for i in range(steps):
+            lrs.append(state.optimizer.param_groups[0]["lr"])
+            m = train.train_step(state, batch, mp, cfg=cfg, augment=False)
+            if i > 0:
+                continue
+            loss, r2 = float(m["loss"]), float(m["r2"])
+            grads = pin_flat(z, f"{record}/grads")
+            gerr = max(float(np.abs(p.grad.cpu().numpy() - grads[n]).max())
+                       / max(float(np.abs(grads[n]).max()), 1e-12)
+                       for n, p in state.model.named_parameters())
+            sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+            serr = max(float(np.abs(sd[n].cpu().numpy() - w).max())
+                       for n, w in pin_flat(z, f"{record}/batch_stats_1").items())
+            prel = check_pin_params(sd, init, pin_flat(z, f"{record}/params_1"), grads,
+                                    lrs[0], True, record)
+            log(f"  {record}: loss {loss:.7f} (pin {float(z[f'{record}/loss']):.7f}), r2 "
+                f"{r2:.6f} (pin {float(z[f'{record}/r2']):.6f}), gradients within "
+                f"{gerr:.2e} of each leaf's max, running statistics within {serr:.2e}, "
+                f"step-1 displacement within {prel:.2e}")
+            if (abs(loss - float(z[f"{record}/loss"])) > PIN_LOSS_RTOL * abs(float(z[f"{record}/loss"]))
+                    or abs(r2 - float(z[f"{record}/r2"])) > PIN_LOSS_RTOL * abs(float(z[f"{record}/r2"]))
+                    or gerr > PIN_GRAD_TOL or serr > 1e-6 or bool(m["overflow"])):
+                raise AssertionError(f"10b {record}: the card's step differs from the pin")
+            out[record] = dict(loss=loss, grad_rel_err=gerr, stats_err=serr, step1_rel=prel)
+        if steps > 1:
+            sd = state.model.state_dict()
+            prel = check_pin_params(sd, init, pin_flat(z, f"{record}/params_{steps}"), grads,
+                                    sum(lrs), False, record)
+            serr = max(float(np.abs(sd[n].cpu().numpy() - w).max())
+                       for n, w in pin_flat(z, f"{record}/batch_stats_{steps}").items())
+            log(f"  {record}: after {steps} steps displacement within {prel:.2e}, running "
+                f"statistics within {serr:.2e} (bar 1e-4)")
+            if serr > 1e-4:
+                raise AssertionError(f"10b {record}: running statistics after {steps} steps")
+            out[record].update(steps_rel=prel)
+        launches = read_counts()
+        want_k = steps if cfg.tpu.stem_zband else 0
+        if launches["zband_conv"]["wmma"] != want_k or any(
+                v for name, r in launches.items() if isinstance(r, dict)
+                for route, v in r.items() if (name, route) != ("zband_conv", "wmma")):
+            raise AssertionError(f"10b {record}: launches {launches}")
+        out[record]["launches"] = launches["zband_conv"]
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_train_step(train):
+    """train.train_step wrapped to record each call: its synchronised ms,
+    the hand-written kernels launched in it, and its metrics."""
+    import torch
+
+    real, calls = train.train_step, []
+
+    def wrapper(state, batch, map_points, rng=None, map_vm=None, *, cfg, augment):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = real(state, batch, map_points, rng, map_vm, cfg=cfg, augment=augment)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = read_counts()
+        launches = {}
+        for k, v in after.items():
+            launches[k] = ({r: v[r] - before[k][r] for r in v} if isinstance(v, dict)
+                           else v - before[k])
+        calls.append(dict(ms=ms, launches=launches, **{k: float(v) for k, v in m.items()}))
+        return m
+
+    return real, wrapper, calls
+
+
+def write_train_data(stable, data):
+    root = os.path.join(HERE, "build", "train_blt")
+    shutil.rmtree(root, ignore_errors=True)
+    scans, valids, labels = data
+    for seq, idx in TRAIN_SPLITS.items():
+        idx = list(idx)
+        write_blt(root, seq, stable, (scans[idx], valids[idx], labels[idx]))
+    return root
+
+
+def fit_run(cfg, label, card, **kw):
+    """train.fit with every step recorded and the launch counts set to 0 just
+    before and read just after; prints the steps and returns the records."""
+    import torch
+
+    from sps_torch import train
+
+    real, wrapper, calls = timed_train_step(train)
+    train.train_step = wrapper
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        path = train.fit(cfg, device="cuda", **kw)
+        wall = time.perf_counter() - t
+        launches = read_counts()
+    finally:
+        train.train_step = real
+    peak = torch.cuda.max_memory_allocated()
+    for i, c in enumerate(calls):
+        log(f"  {label} step {i + 1}: {c['ms']:.1f} ms, loss {c['loss']:.5f}, r2 {c['r2']:.4f}, "
+            f"overflow {bool(c['overflow'])}, submap_overflow {int(c['submap_overflow'])}")
+        if not (np.isfinite(c["loss"]) and np.isfinite(c["r2"])) or c["overflow"]:
+            raise AssertionError(f"{label} step {i + 1}: loss not finite or overflow")
+    ms = [c["ms"] for c in calls]
+    p50 = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    log(f"  {label}: {len(calls)} steps, step p50 after the first {p50:.1f} ms, peak device "
+        f"memory {peak / 2**30:.2f} GiB, fit wall {wall:.1f} s; launches in the run "
+        f"{launches} [{card}]")
+    return dict(path=path, calls=calls, p50=p50, peak=peak, launches=launches)
+
+
+def profile_train_steps(state, batch, mp, cfg, card, label, n=2):
+    from sps_torch import train
+
+    kernels, _, wall_us = profiled(
+        lambda i: train.train_step(state, batch, mp, cfg=cfg, augment=False), n)
+    busy = sum(_device_us(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    log(f"  profile ({label}): {n} steps, wall {wall_us / 1e3:.1f} ms, kernels "
+        f"{busy / n / 1e3:.2f} ms a step (device busy {100 * busy / wall_us:.1f}%), "
+        f"{launches / n:.0f} CUDA kernel launches a step [{card}]")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
+        log(f"  kernel {_device_us(e) / n / 1e3:9.3f} ms a step x{e.count // n:5d}  {e.key[:90]}")
+    return dict(kernel_ms=busy / n / 1e3, launches=launches / n, busy=busy / wall_us)
+
+
+def no_train_launches(calls, label):
+    """The inference-only kernels never launch in a training step."""
+    for i, c in enumerate(calls):
+        fused = sum(c["launches"]["zband_conv_fused"].values())
+        int8 = c["launches"]["brick_conv_int8"] + c["launches"]["brick_conv_int8_gather"]
+        if fused or int8:
+            raise AssertionError(f"{label} step {i + 1}: zband_conv_fused {fused} / int8 {int8} "
+                                 "launches in a training step")
+
+
+def phase_train(card, shipped, stable, data):
+    """10c: train.fit at config/config.yaml as shipped (MinkUNet14 full width,
+    atlas, halo, bf16, batch 2, augmentation on) on phase 6's scans written to
+    disk as config.yaml's splits: an epoch (4 steps) and a validation, a
+    resume for one more step, predict_sequence from `best`; a profile of two
+    steps; then FIXED_BATCH_STEPS steps on one batch without augmentation,
+    whose loss must fall."""
+    import torch
+
+    from sps_torch import eval as ev
+    from sps_torch import train
+    from sps_torch.convert import load_weights
+    from sps_torch.utils import checkpoint as ckpt
+
+    log("phase 10c: training at config.yaml as shipped (fit, resume, predict from best)")
+    root = write_train_data(stable, data)
+    out_dir = os.path.join(HERE, "build", "train_run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = dataclasses.replace(shipped, data=dataclasses.replace(shipped.data, root=root))
+    kw = dict(log_dir=os.path.join(out_dir, "logs"), ckpt_dir=os.path.join(out_dir, "ckpt"))
+    try:
+        cfg1 = dataclasses.replace(base, train=dataclasses.replace(base.train, max_epoch=1))
+        log(f"  batch {cfg1.train.batch_size}, bricks {cfg1.sps_config().caps.bricks}, "
+            f"planes {cfg1.sps_config().unet.planes}, dtype {cfg1.sps_config().unet.dtype}, "
+            f"augmentation {cfg1.train.augmentation}, LR {cfg1.train.lr}")
+        run = fit_run(cfg1, "fit", card, **kw)
+        no_train_launches(run["calls"], "10c")
+        best = run["path"]
+        last = ckpt.restore(os.path.join(kw["ckpt_dir"], "last.pt"))
+        if not (os.path.isfile(best) and last["step"] == 4 and last["epoch"] == 0
+                and np.isfinite(last["best_val"])):
+            raise AssertionError(f"10c: checkpoints after the epoch: step {last['step']}, "
+                                 f"epoch {last['epoch']}, best_val {last['best_val']}")
+        val_int8 = run["launches"]["brick_conv_int8_gather"]
+        log(f"  best {best} (val loss {last['best_val']:.5f}); the validation's int8 gather "
+            f"launches {val_int8} (eval mode; none in the training steps)")
+        cfg2 = dataclasses.replace(base, train=dataclasses.replace(base.train, max_epoch=2))
+        resumed = fit_run(cfg2, "resume", card, max_steps=5, resume=True, **kw)
+        no_train_launches(resumed["calls"], "10c resume")
+        last = ckpt.restore(os.path.join(kw["ckpt_dir"], "last.pt"))
+        if len(resumed["calls"]) != 1 or last["step"] != 5 or not last["mid_epoch"]:
+            raise AssertionError("10c: the resume did not take exactly one step")
+        cfg_p = dataclasses.replace(base, data=dataclasses.replace(base.data,
+                                                                   test=("20220608",)))
+        means = ev.predict_sequence(cfg_p, load_weights(best, cfg_p.sps_config(1)))
+        if not all(np.isfinite(means[k]) for k in ev.METRICS):
+            raise AssertionError(f"10c: predict from best: {means}")
+        # Profile two steps, then a fixed batch without augmentation.
+        cfg_f = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, augmentation=False, lr=FIXED_BATCH_LR))
+        state = train.create_state(cfg_f, 0, steps_per_epoch=4, device="cuda")
+        scans, valids, labels = data
+        batch = {"xyz": torch.as_tensor(scans[:2], device="cuda"),
+                 "label": torch.as_tensor(labels[:2], device="cuda"),
+                 "valid": torch.as_tensor(valids[:2], device="cuda")}
+        mp = torch.as_tensor(stable, device="cuda")
+        prof = profile_train_steps(state, batch, mp, cfg_f, card, "train step, config.yaml")
+        state = train.create_state(cfg_f, 0, steps_per_epoch=4, device="cuda")
+        losses = [float(train.train_step(state, batch, mp, cfg=cfg_f, augment=False)["loss"])
+                  for _ in range(FIXED_BATCH_STEPS)]
+        log(f"  fixed batch, augmentation off, LR {FIXED_BATCH_LR}: losses "
+            f"{[round(x, 5) for x in losses]}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("10c: the loss does not fall on a fixed batch")
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(fit=run, resume=resumed, predict=means, profile=prof, fixed_losses=losses,
+                root=root)
+
+
+def stem_times(filt, sd, card):
+    """The stem of the last rebuild (batch 1, B = the L0 brick capacity):
+    bf16 halo() + cuDNN conv3d (the shipping stem) against halo_z + the
+    zband_conv kernel (STEM_ZBAND), each whole and its conv alone."""
+    import torch
+
+    from sps_torch.ops import brick as bk
+    from sps_torch.ops import zband_conv as zc
+
+    lv = filt._topo_cache[0][0]
+    occ = lv.grid.occ
+    feats = (0.5 * occ).to(torch.bfloat16)
+    w = sd["MinkUNet.conv0p1s1.kernel"].to("cuda", torch.bfloat16)
+    wd = bk.pack_dense_kernel(w, 2)
+    occz = occ.reshape(occ.shape[0], 8, 8, -1)
+    h = bk.halo(feats, lv.nbr27, 2)
+    hz = bk.halo_z(bk.fold_z(feats), lv.nbr27, 2, 2)
+    wz = bk.pack_zband_kernel(wd, 8, 2)
+    with torch.inference_mode():
+        t = dict(
+            halo_conv3d=time_ms(lambda: bk.brick_conv(feats, lv.nbr27, wd, occ, mask_out=False)),
+            conv3d=time_ms(lambda: bk._conv3d_valid(h, wd)),
+            halo_z_kernel=time_ms(lambda: bk.brick_conv_zband(bk.fold_z(feats), lv.nbr27, wd,
+                                                              occz, mask_out=False)),
+            kernel=time_ms(lambda: zc.zband_conv(hz, wz, 5, 8)))
+    log(f"  stem at B = {occ.shape[0]} (bf16): halo() + cuDNN conv3d {t['halo_conv3d']:.3f} ms "
+        f"(conv3d alone {t['conv3d']:.3f}); halo_z + wgmma_k5 {t['halo_z_kernel']:.3f} ms "
+        f"(kernel alone {t['kernel']:.3f}) [{card}]")
+    return t
+
+
+def filter_kernel_ms(filt, data, card, label, n=8):
+    """Kernel time a scan of the filter over n scans (profiler; after a
+    warm-up scan, from a fresh rebuild)."""
+    scans, valids, labels = data
+    pose = np.eye(4, dtype=np.float32)
+    filt(scans[0], valids[0], labels[0], pose)
+    filt.invalidate()
+    kernels, _, _ = profiled(lambda i: filt(scans[i], valids[i], labels[i], pose), n)
+    ms = sum(_device_us(e) for e in kernels) / n / 1e3
+    log(f"  {label} filter: kernels {ms:.2f} ms a scan, "
+        f"{sum(e.count for e in kernels) / n:.0f} launches a scan ({n} scans) [{card}]")
+    return ms
+
+
+def phase_train_stem_zband(card, shipped, sd, stable, data, ship_run, root):
+    """10d: STEM_ZBAND. Three training steps at config.yaml + STEM_ZBAND (one
+    wgmma_k5 launch a step), then the streaming filter at config.yaml +
+    STEM_ZBAND on phase 6's scans: one wgmma_k5 launch a scan, scores within
+    0.05 of the halo stem's (phase 6's run), the stem's times, and the kernel
+    time a scan of both filters (profiler, 8 scans)."""
+    import torch
+
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 10d: STEM_ZBAND (training and the streaming filter)")
+    out_dir = os.path.join(HERE, "build", "train_run_sz")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = twin(dataclasses.replace(shipped, data=dataclasses.replace(shipped.data, root=root)),
+               stem_zband=True)
+    try:
+        run = fit_run(cfg, "fit STEM_ZBAND", card, max_steps=3,
+                      log_dir=os.path.join(out_dir, "logs"), ckpt_dir=os.path.join(out_dir, "ckpt"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    no_train_launches(run["calls"], "10d")
+    for i, c in enumerate(run["calls"]):
+        if c["launches"]["zband_conv"] != {"wmma": 0, "wgmma": 0, "wgmma_k5": 1}:
+            raise AssertionError(f"10d step {i + 1}: zband_conv launches {c['launches']}")
+    torch.cuda.empty_cache()
+    scfg = twin(shipped, stem_zband=True)
+    filt, frun = drive(scfg, sd, stable, data)
+    n_scans = len(data[0])
+    frun["p50"] = check_run(frun, data[1], scfg.tpu.topo_every, card, "STEM_ZBAND filter")
+    check_launches(frun, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
+                          "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                          "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans},
+                   "STEM_ZBAND filter")
+    frun["vs_halo_stem"] = compare_runs(frun, ship_run, data[1], shipped.threshold, 0.05,
+                                        "STEM_ZBAND filter vs the halo stem (phase 6)")
+    stem = stem_times(filt, sd, card)
+    per_scan = {"STEM_ZBAND": filter_kernel_ms(filt, data, card, "STEM_ZBAND")}
+    del filt
+    torch.cuda.empty_cache()
+    filt = StreamingFilter(shipped, sd, stable)
+    per_scan["halo stem"] = filter_kernel_ms(filt, data, card, "halo stem")
+    del filt
+    torch.cuda.empty_cache()
+    return dict(fit=run, filter=dict(p50=frun["p50"], peak=frun["peak"],
+                                     launches=frun["launches"],
+                                     vs_halo_stem=frun["vs_halo_stem"]),
+                stem_ms=stem, kernels_ms_a_scan=per_scan)
+
+
 def main() -> int:
     import torch
 
@@ -1650,6 +2188,13 @@ def main() -> int:
     finally:
         shutil.rmtree(movers_root, ignore_errors=True)
     predict_blt, replay = phase_predict_blt(card, shipped, sd, stable, data, profile)
+    train_k = phase_train_kernels(card, shipped.sps_config().caps.bricks)
+    pin = phase_train_pin(card)
+    fitted = phase_train(card, shipped, stable, data)
+    try:
+        stem_z = phase_train_stem_zband(card, shipped, sd, stable, data, ship, fitted["root"])
+    finally:
+        shutil.rmtree(fitted["root"], ignore_errors=True)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -1663,6 +2208,13 @@ def main() -> int:
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": calls[0]["bound_by"],
             "library_ms": total["library_ms"],
+            **({"train": {
+                "grad_checks": train_k,
+                "launches_10b_pin": {r: v["launches"] for r, v in pin.items()},
+                "launches_10c_fit": fitted["fit"]["launches"][name],
+                "launches_10d_fit": stem_z["fit"]["launches"][name],
+                "launches_10d_filter": stem_z["filter"]["launches"][name],
+                "stem_ms_10d": stem_z["stem_ms"]}} if name == "zband_conv" else {}),
             "calls": [{k: c[k] for k in ("call", "route", "source", "ms", "wmma_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by", "gflop",
                                          "gbytes")}
@@ -1727,7 +2279,12 @@ def main() -> int:
         + f"; predict dIoU v1 {predict_trained['v1']['means']['dIoU']:.4f}, v2 "
         f"{predict_trained['v2']['means']['dIoU']:.4f}; BLT predict p50 {predict_blt['p50']:.2f} "
         f"ms, peak {predict_blt['peak'] / 2**30:.2f} GiB; replay p50 "
-        f"{replay['summary']['p50_latency_s'] * 1e3:.2f} ms")
+        f"{replay['summary']['p50_latency_s'] * 1e3:.2f} ms; train step p50 "
+        f"{fitted['fit']['p50']:.1f} ms, peak {fitted['fit']['peak'] / 2**30:.2f} GiB, "
+        f"{fitted['profile']['launches']:.0f} launches a step; STEM_ZBAND train step p50 "
+        f"{stem_z['fit']['p50']:.1f} ms, peak {stem_z['fit']['peak'] / 2**30:.2f} GiB; filter "
+        f"kernels a scan {stem_z['kernels_ms_a_scan']['STEM_ZBAND']:.2f} (STEM_ZBAND) / "
+        f"{stem_z['kernels_ms_a_scan']['halo stem']:.2f} ms (halo stem)")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
-        [--only ckpt,loc,loop,ckpt_v1,parity,predict]
+        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -44,9 +44,22 @@ Writes, under sps_torch/assets/:
                                   config_loc_movers_v2.yaml (the distance
                                   feature): per-scan Loss/R2/dIoU/Precision/
                                   Recall/F1, overflow flags, and the scan rows'
-                                  scores.
+                                  scores;
+  train_step_pin.npz              sps_tpu.train.grad_step on a seeded small world
+                                  (two scans of sps_torch.data.synthetic's world and
+                                  its map, batch 2), f32, the atlas engine, CONV_MODE
+                                  halo, augmentation off, MinkUNet14 narrowed to
+                                  LOOP_NARROW, LR 1e-3 halved every step: per record
+                                  (TRAIN_RECORDS: the MSE loss; with STEM_ZBAND; the
+                                  BCE loss; STABLE_WEIGHT 2) the inputs and initial
+                                  variables, the loss and r2 of the first step, every
+                                  gradient leaf, the batch_stats after it, and the
+                                  parameters after 1 (and, for mse and stem_zband,
+                                  after 3) steps on the same batch; and `meta`, the
+                                  configuration as JSON (train_meta), from which
+                                  chip_smoke.py rebuilds it without this script.
 
-Runs on the CPU: ckpt and loop in a few minutes, loc ~14 min (--scans 20),
+Runs on the CPU: ckpt, loop and train in a few minutes, loc ~14 min (--scans 20),
 parity and predict several minutes each (bf16 on XLA:CPU is slow).
 """
 
@@ -54,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import shutil
 import sys
@@ -87,6 +101,19 @@ PREDICT_SEQ = "20220629"
 PREDICT_RUNS = {"v1": (CKPT_V1, "config_loc_movers.yaml"),
                 "v2": (CKPT, "config_loc_movers_v2.yaml")}
 PREDICT_METRICS = ("Loss", "R2", "dIoU", "Precision", "Recall", "F1")
+# The train-step pin: a small world, the atlas engine in halo mode, f32.
+TRAIN_WORLD = dict(seed=5, extent=4.0, n_stable=6, ground_points=3000)
+TRAIN_TPU = dict(engine="atlas", brick_side=8, row_from=3, conv_mode="halo",
+                 atlas_extent=(6, 6, 3), scan_points=2048, submap_points=2048,
+                 bricks=(256, 128, 64, 64, 64), voxels=(4096, 2048, 1024, 512, 256),
+                 join_mode="dense", join_extent=(64, 64, 32), bf16=False, int8=False,
+                 head_fold=False, stem_zband=False)
+TRAIN_HP = dict(lr=1e-3, lr_decay=0.5, lr_epoch=1, weight_decay=1e-4, batch_size=2,
+                augmentation=False, loss="mse", stable_weight=1.0)
+TRAIN_VOXEL = 0.25
+# record -> (TPU overrides, TRAIN overrides, Adam steps pinned)
+TRAIN_RECORDS = {"mse": ({}, {}, 3), "stem_zband": (dict(stem_zband=True), {}, 3),
+                 "bce": ({}, dict(loss="bce"), 1), "stable_weight": ({}, dict(stable_weight=2.0), 1)}
 
 
 def log(msg):
@@ -373,12 +400,110 @@ def export_loop_pin():
         shutil.rmtree(root, ignore_errors=True)
 
 
+def train_meta() -> dict:
+    """The train pin's configuration: config_small.yaml with these overrides."""
+    return {"voxel_size": TRAIN_VOXEL, "tpu": TRAIN_TPU, "train": TRAIN_HP,
+            "narrow": LOOP_NARROW, "records": TRAIN_RECORDS}
+
+
+def train_config(mod, record="mse"):
+    """config_small with TRAIN_TPU, TRAIN_HP and the record's overrides,
+    voxel TRAIN_VOXEL and MinkUNet14 narrowed to LOOP_NARROW, as an
+    instance of `mod`'s Config."""
+    tpu, hp, _ = TRAIN_RECORDS[record]
+    cfg = mod.load(os.path.join(HERE, "config", "config_small.yaml"))
+    cfg = dataclasses.replace(cfg, voxel_size=TRAIN_VOXEL,
+                              tpu=dataclasses.replace(cfg.tpu, **{**TRAIN_TPU, **tpu}),
+                              train=dataclasses.replace(cfg.train, **{**TRAIN_HP, **hp}))
+
+    class Narrow(type(cfg)):
+        def sps_config(self, batch_size=None):
+            s = super().sps_config(batch_size)
+            return dataclasses.replace(s, unet=dataclasses.replace(s.unet, **LOOP_NARROW))
+
+    return Narrow(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+def train_inputs():
+    """The pin's batch and map from sps_torch.data.synthetic's numpy world:
+    two scans (labels 0 stable / 1 clutter) padded to SCAN_POINTS, and the
+    stable world as the map."""
+    from sps_torch.data import synthetic as tsyn
+
+    rng = np.random.default_rng(TRAIN_WORLD["seed"])
+    stable = tsyn.make_world(**TRAIN_WORLD)
+    clutter = tsyn._boxes(rng, 3, 0.6 * TRAIN_WORLD["extent"]).astype(np.float32)
+    ns = TRAIN_TPU["scan_points"]
+    xyz = np.zeros((2, ns, 3), np.float32)
+    label = np.zeros((2, ns), np.float32)
+    valid = np.zeros((2, ns), bool)
+    for b, pose in enumerate(([0.5, 0.0], [-0.5, 0.5])):
+        pts, lab = tsyn.sample_scan(rng, stable, clutter, np.asarray(pose), n_rays=120,
+                                    max_r=6.0)
+        n = min(len(pts), ns)
+        xyz[b, :n], label[b, :n], valid[b, :n] = pts[:n], lab[:n], True
+    return {"xyz": xyz, "label": label, "valid": valid}, stable
+
+
+def export_train_pin():
+    import jax
+    from flax import struct
+
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu import train as tr
+
+    class Recording(tr.TrainState):
+        """TrainState that keeps the gradients of its last update."""
+
+        grads: object = struct.field(default=None)
+
+        def apply_gradients(self, *, grads, **kw):
+            return super().apply_gradients(grads=grads, **kw).replace(grads=grads)
+
+    batch, mp = train_inputs()
+    out = {"map": mp, "meta": np.asarray(json.dumps(train_meta())),
+           **{f"batch/{k}": v for k, v in batch.items()}}
+    for record, (_, _, steps) in TRAIN_RECORDS.items():
+        cfg = train_config(jcfg_mod, record)
+        s0 = tr.create_state(cfg, jax.random.PRNGKey(0), steps_per_epoch=1)
+        state = Recording.create(apply_fn=s0.apply_fn, params=s0.params,
+                                 batch_stats=s0.batch_stats, tx=s0.tx,
+                                 grads=jax.tree.map(np.zeros_like, s0.params))
+        step = jax.jit(lambda st, b, m, k: tr.grad_step(st, b, m, k, cfg=cfg, augment=False))
+        key = jax.random.PRNGKey(1)
+        out[f"{record}/init"] = flat_tree({"params": s0.params, "batch_stats": s0.batch_stats})
+        t = time.time()
+        for i in range(steps):
+            state, m = step(state, batch, mp, key)
+            if i == 0:
+                out[f"{record}/loss"] = np.float64(m["loss"])
+                out[f"{record}/r2"] = np.float64(m["r2"])
+                out[f"{record}/overflow"] = np.bool_(m["overflow"])
+                out[f"{record}/grads"] = flat_tree(state.grads)
+                out[f"{record}/batch_stats_1"] = flat_tree(state.batch_stats)
+                out[f"{record}/params_1"] = flat_tree(state.params)
+        if steps > 1:
+            out[f"{record}/params_{steps}"] = flat_tree(state.params)
+            out[f"{record}/batch_stats_{steps}"] = flat_tree(state.batch_stats)
+        log(f"train pin {record}: loss {out[f'{record}/loss']:.6f}, r2 "
+            f"{out[f'{record}/r2']:.6f}, overflow {bool(out[f'{record}/overflow'])} "
+            f"({time.time() - t:.0f} s)")
+    flat = {}
+    for k, v in out.items():
+        if isinstance(v, dict):
+            flat.update({f"{k}/{leaf}": a for leaf, a in v.items()})
+        else:
+            flat[k] = v
+    np.savez_compressed(os.path.join(ASSETS, "train_step_pin.npz"), **flat)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
-    ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict",
-                    help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, predict")
+    ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train",
+                    help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
+                         "predict, train")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -394,6 +519,8 @@ def main(argv=None):
         export_parity_pin()
     if "predict" in parts:
         export_predict_pin(args.scans)
+    if "train" in parts:
+        export_train_pin()
 
 
 if __name__ == "__main__":

@@ -112,6 +112,7 @@ class Config:
                 zband_levels=self.tpu.zband_levels,
                 int8=self.tpu.int8,
                 stem_zband=self.tpu.stem_zband,
+                remat=self.tpu.remat,
                 head_fold=self.tpu.head_fold,
             ),
             engine=self.tpu.engine,

@@ -9,7 +9,8 @@ scripts/export_torch_assets.py (leaves keyed by their tree path,
 sps_torch/assets/ckpt_loc_movers_v2.npz. `load_me_ckpt` reads the
 reference's MinkowskiEngine checkpoints (a Lightning .ckpt or a bare
 state_dict; counterpart of sps_tpu/convert.py::torch_ckpt_to_variables) and
-`state_dict_from_me` maps their keys and kernel layouts.
+`state_dict_from_me` maps their keys and kernel layouts. `load_weights`
+also reads the port's own trainer checkpoints (sps_torch.utils.checkpoint).
 Names mirror flax's (MinkUNet.block8_0.conv1.kernel,
 MinkUNet.block8_0.norm1.{scale,bias,mean,var}); kernels keep their
 (k^3, kt, Cin, Cout) layout with x-slowest offsets, and the torch modules
@@ -23,6 +24,8 @@ import os
 
 import numpy as np
 import torch
+
+from sps_torch.utils import checkpoint
 
 
 def _flatten(tree: dict, prefix: str, out: dict):
@@ -190,5 +193,11 @@ def load_me_ckpt(path: str, sps_cfg) -> dict[str, torch.Tensor]:
 
 
 def load_weights(path: str, sps_cfg) -> dict[str, torch.Tensor]:
-    """SPSModel state_dict from an exported .npz or a reference .ckpt."""
-    return load_me_ckpt(path, sps_cfg) if path.endswith(".ckpt") else load_npz(path)
+    """SPSModel state_dict from an exported .npz, a checkpoint of the port's
+    trainer (sps_torch.utils.checkpoint) or a reference .ckpt."""
+    if path.endswith(".npz"):
+        return load_npz(path)
+    item = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(item, dict) and item.get("format") == checkpoint.FORMAT:
+        return dict(item["model"])
+    return load_me_ckpt(path, sps_cfg)

@@ -5,12 +5,15 @@ The on-disk layout: sequences under $DATA/sequence/<SEQ>/{scans,poses,
 map_transform}, the base map under $DATA/maps/. Scans are .npy (N, 4)
 float32 [x, y, z, label] in the sensor frame; a scan's ground-truth pose is
 map_transform @ pose. load_sequences and BLTDataModule give the offline
-predict path its scans posed into the map frame and padded to SCAN_POINTS.
+predict path its scans posed into the map frame and padded to SCAN_POINTS;
+`prefetched` pads the trainer's next batch on a worker thread.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 
 import numpy as np
 
@@ -131,3 +134,31 @@ class BLTDataModule:
                 label[b, :n] = scan[:, 3]
                 valid[b, :n] = True
             yield {"xyz": xyz, "label": label, "valid": valid, "indices": sel}
+
+
+def prefetched(it):
+    """Iterate `it` through a worker thread and a queue of at most two
+    items, so the host pads batch i + 1 while the device runs step i. An
+    exception of `it` is raised here, at its place in the sequence."""
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = object()
+
+    def worker():
+        try:
+            for item in it:
+                q.put((item, None))
+        except Exception as e:  # handed to the consumer, raised there
+            q.put((None, e))
+        finally:
+            q.put((stop, None))
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item, err = q.get()
+        if err is not None:
+            raise err
+        if item is stop:
+            break
+        yield item
+    t.join(timeout=60)

@@ -7,7 +7,13 @@ skip concat + BasicBlock] -> 1x1 head.
 
 Module and parameter names mirror sps_tpu's flax tree (conv0p1s1, bn0,
 block8_0.conv1, ...) so weights carry across by name (sps_torch/convert.py).
-Inference only: MaskedBatchNorm normalises with its running statistics.
+`nn.Module.training` is flax's `train` flag: in training MaskedBatchNorm
+normalises with the batch's statistics over real slots and updates its
+running averages once per forward; in eval mode it uses the running
+statistics. The fused z-band epilogue and the int8 convs are
+inference-only, as in sps_tpu. With `remat` each BasicBlock runs under
+torch.utils.checkpoint in training (its activations recomputed in the
+backward, the running statistics left alone by the recomputation).
 
 Levels are a mixed pyramid: brick levels (ops.brick.BrickLevel) at L0-L2
 and aliased voxel-row levels (ops.atlas.RowLevel) at L3/L4. With
@@ -17,17 +23,21 @@ the zband_conv kernels, BasicBlocks through the fused kernel. Other brick
 levels use the dense halo conv ("halo", as under conv_mode "halo"), row
 levels the row-gather conv. With int8 the 3^3 convs of unfolded brick
 levels run as int8 convs (the brick_conv_int8 kernel); with head_fold
-the 1x1 head runs on the z-folded layout.
+the 1x1 head runs on the z-folded layout. With stem_zband the k = 5 stem
+alone runs folded (in bf16 the zband_conv kernel's "wgmma_k5" route), then
+unfolds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from sps_torch.ops import atlas as atl
 from sps_torch.ops import brick as bk
@@ -55,9 +65,12 @@ class MinkUNetConfig:
     # Inference-only int8 math for the 3^3 convs of unfolded brick levels
     # (ops.brick.brick_conv_int8), quantized from the f32 master kernels.
     int8: bool = False
-    # Not ported yet: setting it where it would take effect raises
-    # NotImplementedError.
+    # Run the k = 5 stem alone in the z-folded layout (brick level 0 not
+    # folded already): the folded halo, the zband_conv kernel, BN and relu
+    # folded, then unfold.
     stem_zband: bool = False
+    # Recompute each BasicBlock's activations in the backward (training).
+    remat: bool = False
     # Run the 1x1 head on the z-folded layout (same memory order).
     head_fold: bool = False
 
@@ -89,15 +102,27 @@ def cat_time(a, b, num_time):
     return ab.reshape(a.shape[:-1] + (-1,))
 
 
+BN_MOMENTUM = 0.1  # weight of the batch in the running averages (torch's)
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over real (voxel, t) slots (ME MinkowskiBatchNorm), eval mode:
-    normalises with the running statistics and re-masks phantom slots.
-    Accepts feats (..., T*C) with occ (..., T)."""
+    """BatchNorm over real (voxel, t) slots (ME MinkowskiBatchNorm); re-masks
+    phantom slots. Accepts feats (..., T*C) with occ (..., T), unfolded or
+    z-folded.
+
+    Training: mean and biased variance of the batch over occupied slots,
+    the affine applied in f32, masked, cast to the compute dtype; the
+    running averages take momentum 0.1 of the batch's mean and unbiased
+    variance (count clamped at 2), torch's convention, so converted
+    checkpoints evaluate identically. Eval: the running statistics, in the
+    compute dtype. `update_stats` False keeps the running averages (set
+    while remat recomputes a block)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.features = features
         self.eps = eps
+        self.update_stats = True
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -111,9 +136,25 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, feats, occ):
         dtype = feats.dtype
-        s, b = self.affine()
-        x = feats.reshape(feats.shape[:-1] + (occ.shape[-1], self.features))
-        return sc.mask_slots((x * s.to(dtype) + b.to(dtype)).reshape(feats.shape), occ)
+        if not self.training:
+            s, b = self.affine()
+            x = feats.reshape(feats.shape[:-1] + (occ.shape[-1], self.features))
+            return sc.mask_slots((x * s.to(dtype) + b.to(dtype)).reshape(feats.shape), occ)
+        t = occ.shape[-1]
+        f2 = feats.reshape(-1, feats.shape[-1]).float()
+        o2 = occ.reshape(-1, t)
+        mean, var = sc.masked_batch_stats(f2, o2)
+        if self.update_stats:
+            with torch.no_grad():
+                cnt = torch.clamp_min(o2.sum(dtype=torch.float32), 2.0)
+                m = BN_MOMENTUM
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * (var * cnt / (cnt - 1.0)))
+        # The per-channel affine rounds to the compute dtype, as sps_tpu's.
+        inv = 1.0 / torch.sqrt(var + self.eps)
+        s = (inv * self.scale).to(dtype).repeat(t)
+        b = (self.bias - mean * inv * self.scale).to(dtype).repeat(t)
+        return sc.mask_slots((f2 * s + b).to(dtype), o2).reshape(feats.shape)
 
 
 class SpConv(nn.Module):
@@ -154,8 +195,9 @@ class SpConv(nn.Module):
                         num_time=self.num_time, relu=epilogue.get("relu", True),
                     )
                 return bk.brick_conv_zband(feats, lvl.nbr27, wd, occ, mask_out=self.mask_out)
-            if self.int8 and self.ksize == 3:
-                # Quantize from the f32 master kernel, not the compute-dtype cast.
+            if self.int8 and self.ksize == 3 and not self.training:
+                # Inference only. Quantize from the f32 master kernel, not
+                # the compute-dtype cast.
                 wd8 = bk.pack_dense_kernel(self.kernel, self.num_time)
                 return bk.brick_conv_int8(feats, lvl.nbr27, wd8, occ, mask_out=self.mask_out)
             # Unfolded levels under "zband" use the halo assembly; sps_tpu
@@ -233,9 +275,9 @@ class BasicBlock(nn.Module):
     exactly zero), as the halo and neighbour gathers require."""
 
     def __init__(self, cin, planes, num_time, block_kernel=3, conv_mode="region",
-                 int8=False, generator=None):
+                 int8=False, remat=False, generator=None):
         super().__init__()
-        self.cin, self.planes, self.conv_mode = cin, planes, conv_mode
+        self.cin, self.planes, self.conv_mode, self.remat = cin, planes, conv_mode, remat
         t = num_time
         self.conv1 = SpConv(cin, planes, block_kernel, 3, t, conv_mode=conv_mode,
                             mask_out=False, int8=int8, generator=generator)
@@ -253,8 +295,28 @@ class BasicBlock(nn.Module):
             return feats
         return self.downsample_norm(self.downsample_conv(feats, lvl, occ), occ)
 
+    @contextlib.contextmanager
+    def _frozen_stats(self):
+        """The block's BNs leave their running averages alone (remat's
+        recomputation repeats the forward, which must not update them twice)."""
+        norms = [m for m in self.modules() if isinstance(m, MaskedBatchNorm)]
+        for m in norms:
+            m.update_stats = False
+        try:
+            yield
+        finally:
+            for m in norms:
+                m.update_stats = True
+
     def forward(self, feats, lvl, occ):
-        if self.conv_mode == "zband" and _is_brick(lvl) and feats.dim() == 4:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(self._forward, feats, lvl, occ, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), self._frozen_stats()))
+        return self._forward(feats, lvl, occ)
+
+    def _forward(self, feats, lvl, occ):
+        if (not self.training and self.conv_mode == "zband" and _is_brick(lvl)
+                and feats.dim() == 4):
             # Folded zband level: conv + BN (+ residual) + relu + mask fused
             # into the kernel epilogue. occ * relu(x*s+b) == relu(occ*(x*s+b))
             # for occ in {0, 1}, so this equals the unfused path.
@@ -300,7 +362,7 @@ class MinkUNet(nn.Module):
                 name = f"block{i + 1}_{j}"
                 setattr(self, name, BasicBlock(bcin if j == 0 else planes, planes, t,
                                                cfg.block_kernel, cfg.conv_mode,
-                                               cfg.int8, generator=g))
+                                               cfg.int8, cfg.remat, generator=g))
                 blocks.append(name)
             self.stages.append((conv, bn, blocks))
         self.final = SpConv(p[7], cfg.out_channels, 1, 1, t, use_bias=True, generator=g)
@@ -318,12 +380,17 @@ class MinkUNet(nn.Module):
         occ = [occ_lvl(i, lv) for i, lv in enumerate(levels)]
         if fold[0] and feats.dim() == 5:
             feats = bk.fold_z(feats)
-        if cfg.stem_zband and not fold[0]:
-            raise NotImplementedError("stem_zband is not ported yet")
+        stem_fold = cfg.stem_zband and not fold[0] and _is_brick(levels[0]) and feats.dim() == 5
 
         with record_function("sps.stem"):
-            x = self.conv0p1s1(feats, levels[0], occ[0])
-            x = torch.relu(self.bn0(x, occ[0]))
+            if stem_fold:
+                o0 = occ[0]
+                socc = o0.reshape(o0.shape[0], o0.shape[1], o0.shape[2], -1)
+                x = self.conv0p1s1(bk.fold_z(feats), levels[0], socc)
+                x = bk.unfold_z(torch.relu(self.bn0(x, socc)), t * cfg.init_dim)
+            else:
+                x = self.conv0p1s1(feats, levels[0], occ[0])
+                x = torch.relu(self.bn0(x, occ[0]))
         skips = [x]
         # Encoder to L1..L4, then decoder back to L3..L0 with skip concats.
         targets = [1, 2, 3, 4, 3, 2, 1, 0]

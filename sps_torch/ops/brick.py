@@ -6,6 +6,10 @@ over halo-extended bricks assembled from the 26 neighbour bricks given by
 exact zeros by the brick occupancy (B, bs, bs, bs, T). The z-band layout
 folds z into channels, (B, bs, bs, bs*TC), and runs the stride-1 conv as
 one 2-D conv (ops/zband_conv.py, a CUDA kernel on the card).
+
+The halo assembly's gradient is a gather too (`_halo_transpose`, sps_tpu's
+`_halo_bwd_core` in the port's gather layout): autograd's own transpose of
+a row gather is an atomic scatter-add, non-deterministic in float.
 """
 
 from __future__ import annotations
@@ -117,14 +121,104 @@ def _halo_assemble(x, nbr27, pad, zaxis_scale):
     return out.reshape((bout, h, h, h * zaxis_scale) + tuple(x.shape[4:]))
 
 
+_HALO_T_MAPS: dict = {}
+
+
+def _halo_transpose_map(bs: int, pad: int, device):
+    """Static tables of the halo's transpose, uploaded once per device. A
+    source z-line (lx, ly) of brick s sits in the halo of each brick b with
+    s = nbr27[k][b], at halo column (lx + dx*bs + pad, ly + dy*bs + pad)
+    for the offset k = (dx, dy, dz), where that column lies in the halo;
+    by the tables' symmetry b = nbr27[26 - k][s]. For each dz, each of J
+    slots (a line has at most J such (dx, dy)) and each line, the tables
+    hold 26 - k (-1 for an unused slot) and the halo column h_x * h + h_y."""
+    key = (bs, pad, str(device))
+    if key not in _HALO_T_MAPS:
+        h = bs + 2 * pad
+        loc = np.arange(bs)
+        # Per axis: the offsets under which each local index lands in the halo.
+        axis = [[d for d in (-1, 0, 1) if 0 <= l + d * bs + pad < h] for l in loc]
+        slots = [[(dx, dy) for dx in axis[lx] for dy in axis[ly]]
+                 for lx in range(bs) for ly in range(bs)]
+        j = max(len(s) for s in slots)
+        kt = np.full((3, j, bs * bs), -1, np.int64)
+        col = np.zeros((3, j, bs * bs), np.int64)
+        for line, sl in enumerate(slots):
+            lx, ly = divmod(line, bs)
+            for i, (dx, dy) in enumerate(sl):
+                for dz in range(3):
+                    kt[dz, i, line] = 26 - (((dx + 1) * 3 + dy + 1) * 3 + dz)
+                    col[dz, i, line] = (lx + dx * bs + pad) * h + ly + dy * bs + pad
+        _HALO_T_MAPS[key] = (torch.as_tensor(kt, device=device),
+                             torch.as_tensor(col, device=device))
+    return _HALO_T_MAPS[key]
+
+
+def _halo_transpose(g, nbr27, pad, x_shape):
+    """Gradient of _halo_assemble by gathers (no scatter): each source
+    z-line collects, for each dz, the cotangent of the halo columns it
+    filled, brought back through nbr27[26 - k]. g has the halo's shape;
+    returns the input's gradient, of shape x_shape. Phantom rows of nbr27
+    carry -1, so bricks past num_bricks, which no halo reads, get 0."""
+    b, bs = x_shape[0], x_shape[1]
+    h = bs + 2 * pad
+    cols = g.reshape(g.shape[0] * h * h, -1)  # halo columns: h * TC values each
+    tc = cols.shape[1] // h
+    kt, col = _halo_transpose_map(bs, pad, g.device)
+    nb = nbr27[kt.clamp(min=0).reshape(-1)].reshape(kt.shape + (b,))  # (3, J, bs*bs, B)
+    rows = torch.where((nb >= 0) & (kt[..., None] >= 0), nb.long() * (h * h) + col[..., None],
+                       cols.shape[0])
+    rows = rows.permute(0, 1, 3, 2).reshape(3, kt.shape[1], -1)  # (dz, J, B * bs*bs)
+    parts = []
+    # dz = -1 filled halo z [0, pad) from source z [bs - pad, bs); dz = 0 halo
+    # z [pad, pad + bs) from the whole line; dz = +1 halo z [bs + pad, h) from
+    # source z [0, pad).
+    for dz, src in enumerate((cols[:, : pad * tc], cols[:, pad * tc : (pad + bs) * tc],
+                              cols[:, (bs + pad) * tc :])):
+        src = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+        acc = src[rows[dz, 0]]
+        for i in range(1, rows.shape[1]):
+            acc = acc + src[rows[dz, i]]
+        parts.append(acc)
+    d = parts[1]
+    d[:, (bs - pad) * tc :] += parts[0]
+    d[:, : pad * tc] += parts[2]
+    return d.reshape(x_shape)
+
+
+class _SymmetricHalo(torch.autograd.Function):
+    """The halo assembly with its gather-transpose gradient (tables of one
+    level, where nbr27[k][b] == s <=> nbr27[26 - k][s] == b)."""
+
+    @staticmethod
+    def forward(ctx, x, nbr27, pad, zaxis_scale):
+        ctx.save_for_backward(nbr27)
+        ctx.pad, ctx.x_shape = pad, x.shape
+        return _halo_assemble(x, nbr27, pad, zaxis_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (nbr27,) = ctx.saved_tensors
+        return _halo_transpose(g, nbr27, ctx.pad, ctx.x_shape), None, None, None
+
+
+def _halo(x, nbr27, pad, zaxis_scale):
+    """sps_tpu's dispatch: the gather-transpose gradient when the output
+    bricks are the input's (feats.shape[0] == nbr27.shape[1]), else
+    autograd through the gathers."""
+    if torch.is_grad_enabled() and x.requires_grad and x.shape[0] == nbr27.shape[1]:
+        return _SymmetricHalo.apply(x, nbr27, pad, zaxis_scale)
+    return _halo_assemble(x, nbr27, pad, zaxis_scale)
+
+
 def halo(feats: torch.Tensor, nbr27: torch.Tensor, pad: int) -> torch.Tensor:
     """(B, bs, bs, bs, C) -> (B, bs+2p, bs+2p, bs+2p, C): 26-neighbour assembly."""
-    return _halo_assemble(feats, nbr27, pad, 1)
+    return _halo(feats, nbr27, pad, 1)
 
 
 def halo_z(zfeats: torch.Tensor, nbr27: torch.Tensor, pad: int, tc: int) -> torch.Tensor:
     """z-folded halo: (B, bs, bs, bs*TC) -> (B, bs+2p, bs+2p, (bs+2p)*TC)."""
-    return _halo_assemble(zfeats, nbr27, pad, tc)
+    return _halo(zfeats, nbr27, pad, tc)
 
 
 def fold_z(feats: torch.Tensor) -> torch.Tensor:
@@ -194,8 +288,42 @@ def brick_conv_zband_fused(zfeats, nbr27, w_dense, scale_c, bias_c, occ_rep, res
 
 def _conv3d_valid(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """VALID 3-D cross-correlation in the JAX layouts: x NDHWC, w DHWIO."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv3dValid.apply(x, w)
+    return _conv3d_fwd(x, w)
+
+
+def _conv3d_fwd(x, w):
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2))
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class _Conv3dValid(torch.autograd.Function):
+    """_conv3d_valid with its input gradient as a forward conv: the FULL
+    correlation of dy with the kernel flipped in space and transposed in
+    channels. cuDNN's own data gradient for the halo convs' shapes (many
+    10^3 volumes, 16-96 channels) picks a direct kernel that took ~100 ms
+    a call on an H100 at L0; as a forward conv it runs the implicit-GEMM
+    kernels of the forward pass. The weight gradient is cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _conv3d_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        k = w.shape[0]
+        dy_ = dy.permute(0, 4, 1, 2, 3)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.permute(3, 4, 0, 1, 2).flip(2, 3, 4)  # (I, O, k, k, k)
+            dx = F.conv3d(dy_, wt, padding=k - 1).permute(0, 2, 3, 4, 1)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv3d_weight(x.permute(0, 4, 1, 2, 3), (w.shape[4], w.shape[3],
+                                             k, k, k), dy_).permute(2, 3, 4, 1, 0)
+        return dx, dw
 
 
 def brick_conv(feats, nbr27, w_dense, occ, *, mask_out: bool = True):

@@ -5,6 +5,12 @@ mask; time is packed into channel blocks, so a 4D conv with time kernel KT
 becomes a 3D conv whose per-offset weight is a block-Toeplitz (T*Cin,
 T*Cout) matrix. Phantom (voxel, t) slots are masked to exact zeros. These
 serve the deep (L3/L4) row levels of the atlas pyramid.
+
+Row gathers are index_select: its gradient is an index_add_, which on an
+H100 took a training step's gathers from ~1.07 s to ~17 ms against
+the sort-based transpose of advanced indexing (x[idx]). Where an index
+repeats (neighbour tables, parents) the adds are atomics, so the bf16
+gradient's last bits may differ between runs.
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ import torch
 
 def take_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Gather rows of (V, ...) feats at idx (...,), 0 where idx < 0."""
-    out = feats[idx.clamp(min=0).long()]
+    out = torch.index_select(feats, 0, idx.clamp(min=0).reshape(-1).long()).reshape(
+        idx.shape + feats.shape[1:])
     mask = (idx >= 0).to(feats.dtype)
     return out * mask.reshape(mask.shape + (1,) * (out.dim() - mask.dim()))
 
@@ -49,7 +56,7 @@ def sparse_conv(feats, nbr, w_packed, occ, *, mask_out: bool = True):
     tc = feats.shape[1]
     fz = torch.cat([feats, feats.new_zeros((1, tc))], dim=0)
     idx = torch.where(nbr >= 0, nbr, feats.shape[0]).T.reshape(-1).long()
-    g = fz[idx].reshape(v, k * tc)
+    g = torch.index_select(fz, 0, idx).reshape(v, k * tc)
     out = g @ w_packed.reshape(k * tc, w_packed.shape[-1])
     return mask_slots(out, occ) if mask_out else out
 
@@ -76,3 +83,18 @@ def mask_slots(feats: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     t = occ.shape[-1]
     x = feats.reshape(feats.shape[:-1] + (t, -1)) * occ[..., None].to(feats.dtype)
     return x.reshape(feats.shape)
+
+
+def masked_batch_stats(feats: torch.Tensor, occ: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance over real (voxel, t) slots:
+    feats (V, T*C), occ (V, T) -> ((C,), (C,)). All time slots mix (ME's
+    MinkowskiBatchNorm); phantom slots do not count, and the count is
+    max(sum(occ), 1)."""
+    v, tc = feats.shape
+    t = occ.shape[1]
+    x = feats.reshape(v, t, tc // t)
+    w = occ.to(feats.dtype)[:, :, None]
+    cnt = torch.clamp_min(occ.sum(dtype=torch.float32).to(feats.dtype), 1.0)
+    mean = (x * w).sum(dim=(0, 1)) / cnt
+    var = (w * (x - mean) ** 2).sum(dim=(0, 1)) / cnt
+    return mean, var

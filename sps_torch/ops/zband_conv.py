@@ -11,6 +11,13 @@ axes carry the folded z dimension:
 inference epilogue `occ * [relu](acc * scale + bias [+ res])` in f32
 before the one cast.
 
+`zband_conv` is a torch.autograd.Function: its forward is the kernel (or
+the plain version on the CPU), its backward `zband_conv_bwd` is plain
+PyTorch, as sps_tpu's is XLA (pallas_conv.py:406-442): d_hz by k*k
+shifted matmuls with dout, d_wz by k*k contractions over (b, xo, yo), both
+summed in f32 and cast to the inputs' dtypes. `zband_conv_fused` is
+inference-only and raises when a gradient is asked of an operand.
+
 On a CUDA tensor both launch a hand-written kernel through the ops that
 sps_torch/csrc/zband_conv_op.cpp registers (torch.ops.sps_torch.*). The
 call's shape picks the kernel (`route`): "wgmma" runs
@@ -324,23 +331,66 @@ def zband_conv_fused_ref(hz, wz, scale, bias, occ, res=None, *, k: int, bs: int,
     return (y * occ.float()).to(hz.dtype)
 
 
+def zband_conv_bwd(hz, wz, dout, k: int, bs: int, need_hz: bool = True, need_wz: bool = True):
+    """The gradients (d_hz, d_wz) of zband_conv (None where not needed):
+    d_hz[b, xo+kx, yo+ky] += dout[b, xo, yo] @ wz[kx, ky].T and
+    d_wz[kx, ky] = sum_{b, xo, yo} hz[b, xo+kx, yo+ky]^T dout[b, xo, yo],
+    in f32, cast to hz's and wz's dtypes."""
+    d32 = dout.float()
+    d_hz = d_wz = None
+    if need_hz:
+        acc = torch.zeros(hz.shape, dtype=torch.float32, device=hz.device)
+        for kx in range(k):
+            for ky in range(k):
+                acc[:, kx : kx + bs, ky : ky + bs] += d32 @ wz[kx, ky].float().T
+        d_hz = acc.to(hz.dtype)
+    if need_wz:
+        h32 = hz.float()
+        d2 = d32.reshape(-1, d32.shape[-1])
+        d_wz = torch.stack([
+            torch.stack([h32[:, kx : kx + bs, ky : ky + bs].reshape(-1, hz.shape[-1]).T @ d2
+                         for ky in range(k)])
+            for kx in range(k)]).to(wz.dtype)
+    return d_hz, d_wz
+
+
+class _ZbandConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hz, wz, k, bs):
+        ctx.save_for_backward(hz, wz)
+        ctx.k, ctx.bs = k, bs
+        if hz.device.type == "cpu":
+            return zband_conv_ref(hz, wz, k, bs)
+        return _launch("zband_conv", route(hz, wz, k, bs), hz, wz, k, bs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        hz, wz = ctx.saved_tensors
+        d_hz, d_wz = zband_conv_bwd(hz, wz, dout, ctx.k, ctx.bs, *ctx.needs_input_grad[:2])
+        return d_hz, d_wz, None, None
+
+
 def zband_conv(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int) -> torch.Tensor:
-    """VALID 2-D conv of the z-folded halo with the packed band kernel.
+    """VALID 2-D conv of the z-folded halo with the packed band kernel,
+    differentiable in hz and wz.
 
     hz: (B, bs+k-1, bs+k-1, (bs+k-1)*TCin) assembled halo (brick.halo_z).
     wz: (k, k, (bs+k-1)*TCin, bs*TCout) from brick.pack_zband_kernel.
     Returns (B, bs, bs, bs*TCout) in hz.dtype."""
-    if hz.device.type == "cpu":
-        return zband_conv_ref(hz, wz, k, bs)
-    return _launch("zband_conv", route(hz, wz, k, bs), hz, wz, k, bs)
+    return _ZbandConv.apply(hz, wz, k, bs)
 
 
 def zband_conv_fused(hz, wz, scale, bias, occ, res=None, *, k: int, bs: int,
                      relu: bool = True) -> torch.Tensor:
-    """Inference-only fused conv + BN affine (+res) (+relu) + mask.
+    """Inference-only fused conv + BN affine (+res) (+relu) + mask; raises
+    when an operand requires a gradient.
 
     scale/bias: (bs*TCout,) f32 z-tiled affine; occ: (B, bs, bs, bs*TCout)
     channel-repeated occupancy; res: optional residual of the same shape."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (hz, wz, scale, bias, occ, res)):
+        raise RuntimeError("zband_conv_fused is inference-only: it has no gradient "
+                           "(train with the unfused zband_conv and MaskedBatchNorm)")
     if hz.device.type == "cpu":
         return zband_conv_fused_ref(hz, wz, scale, bias, occ, res, k=k, bs=bs, relu=relu)
     path = route(hz, wz, k, bs, scale, bias, occ, res)

@@ -4,7 +4,8 @@
 Per sample: find the map points near the scan (the dense radius join),
 compact them into SUBMAP_POINTS slots, and stack [scan (t = 1, its labels) ;
 submap (t = 0, label 1)] into the flat padded PointBatch the model's
-PointBatch entry takes. Everything stays on the device of the inputs.
+PointBatch entry takes; in training, augment scan and submap jointly with
+one matrix per sample. Everything stays on the device of the inputs.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from sps_torch import register as reg
 from sps_torch.config import Config
+from sps_torch.ops import augment as aug
 from sps_torch.ops import radius as rad
 from sps_torch.structs import PointBatch
 
@@ -27,10 +29,9 @@ def assemble_batch(scan_xyz, scan_label, scan_valid, map_points, cfg: Config, rn
     counters: submap_overflow, cell_dropped, submap_count as int32 counts).
 
     map_vm (a register.VoxelMap) adds each point's distance to the map,
-    uncapped beyond 1.0 as offline. rng (augmentation) belongs to training,
-    which is not ported yet."""
-    if rng is not None:
-        raise NotImplementedError("augmentation belongs to training (ROADMAP module item 5)")
+    uncapped beyond 1.0 as offline. rng (a torch.Generator; training)
+    draws one augmentation matrix per sample, applied to its scan and
+    submap after the distance feature."""
     if cfg.tpu.join_mode != "dense":
         rad.radius_join()
     bsz, ns, _ = scan_xyz.shape
@@ -55,6 +56,9 @@ def assemble_batch(scan_xyz, scan_label, scan_valid, map_points, cfg: Config, rn
         # original geometry. Submap points are map points (distance ~0).
         dist = torch.stack([reg.point_map_distance(map_vm, xyz[b], valid[b])
                             for b in range(bsz)])
+    if rng is not None:
+        mats = torch.stack([aug.augmentation_matrix(rng) for _ in range(bsz)]).to(dev)
+        xyz = torch.bmm(xyz, mats)
     # Submap labels are constant 1.
     label = torch.cat([scan_label, torch.ones((bsz, sub), dtype=scan_label.dtype, device=dev)],
                       1)

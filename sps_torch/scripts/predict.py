@@ -3,7 +3,8 @@
     python -m sps_torch.scripts.predict -w sps_torch/assets/ckpt_loc_movers.npz \\
         -c config/config_loc_movers.yaml -seq 20220629 --data DIR [--save-vis] [--device cpu]
 
--w takes an exported checkpoint .npz (sps_torch.convert.load_npz) or a
+-w takes an exported checkpoint .npz (sps_torch.convert.load_npz), a
+checkpoint of the port's trainer (sps_torch.scripts.train's best.pt) or a
 reference .ckpt (sps_torch.convert.load_me_ckpt). Prints the table of
 mean Loss/R2/dIoU/Precision/Recall/F1 over the sequence's scans.
 """
@@ -21,7 +22,8 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="Evaluate a checkpoint on a sequence.")
     ap.add_argument("-w", "--weights", required=True,
-                    help="an exported checkpoint .npz or a reference .ckpt")
+                    help="an exported checkpoint .npz, a trainer checkpoint (best.pt) "
+                         "or a reference .ckpt")
     ap.add_argument("-seq", "--sequence", default=None,
                     help="evaluate this sequence instead of the config's test split")
     ap.add_argument("-c", "--config", default="./config/config.yaml")

@@ -113,7 +113,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Replay a sequence through the streaming filter.")
     ap.add_argument("-c", "--config", default="./config/config.yaml")
     ap.add_argument("-w", "--weights", required=True,
-                    help="an exported checkpoint .npz or a reference .ckpt")
+                    help="an exported checkpoint .npz, a trainer checkpoint (best.pt) "
+                         "or a reference .ckpt")
     ap.add_argument("-seq", "--sequence", required=True)
     ap.add_argument("--data", default=None, help="dataset root (defaults to $DATA)")
     ap.add_argument("--rate", type=float, default=0.0, help="scans a second (0: unpaced)")

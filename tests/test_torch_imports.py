@@ -43,7 +43,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(mods) >= 35
     for m in ("register", "stream.loop", "stream.localize", "data.blt", "data.synthetic",
               "convert", "stream.engine", "pipeline", "eval", "ops.radius", "data.prefetch",
-              "stream.replay", "scripts.predict"):
+              "stream.replay", "scripts.predict", "train", "ops.augment", "utils.checkpoint",
+              "scripts.train"):
         assert f"sps_torch.{m}" in mods, m
 
 
@@ -109,6 +110,21 @@ def test_offline_entry_points_default_to_the_card(entry, tmp_path):
     cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"), data_root=str(tmp_path))
     call = {"predict_sequence": lambda: predict_sequence(cfg, {}),
             "replay_sequence": lambda: replay_sequence(cfg, {}, "20220629")}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+@pytest.mark.parametrize("entry", ["fit", "create_state"])
+def test_training_defaults_to_the_card(entry, tmp_path):
+    """fit and create_state train on the card unless device="cpu" is passed:
+    with no card they raise before reading any data."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sps_torch import config, train
+
+    cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"), data_root=str(tmp_path))
+    call = {"fit": lambda: train.fit(cfg, log_dir=str(tmp_path), ckpt_dir=str(tmp_path)),
+            "create_state": lambda: train.create_state(cfg, 0, 1)}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
 
