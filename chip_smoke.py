@@ -88,7 +88,7 @@ Phases, each of which raises (and exits non-zero) on failure:
               sps_tpu's pin (sps_torch/assets/loc_movers_v2_pin.npz): each
               scan's translation within 3 mm, ATE within 1 mm and kept
               fraction within 0.005 of the pin's; sps's ATE below raw's on
-              20220629;
+              20220629; then phase 11 on the same data;
   9. offline - (9a) the int8 parity gate of tests/test_int8_parity.py on
               the trained v1 checkpoint (sps_torch/assets/ckpt_loc_movers.npz,
               config_loc_movers.yaml, epsilon 0.9, six scans of 20220608
@@ -134,6 +134,18 @@ Phases, each of which raises (and exits non-zero) on failure:
               launch a scan, scores within 0.05 of phase 6's), the stem's
               times (halo() + cuDNN conv3d against halo_z + the kernel) and
               both filters' kernel time a scan.
+  11. baselines - (phase_baselines, run after phase 8 on its movers data)
+              the round-5 baseline checkpoints (sps_torch/assets/
+              baselines_r5_*.npz): MOS4D (bf16, as sps_tpu), MapMOS and LTS
+              (f32, TF32 off) on 20220629's first scan against sps_tpu's
+              outputs in loc_baselines_pin.npz; run_localization with mask,
+              mos4d, mapmos and lts (phase 8's protocol) on 20220629 and
+              20220629_clean against the pin at phase 8's tolerances, MOS4D
+              pinned to sps_tpu's keep masks (its registration is chaotic
+              in them; its own decisions held at every call), then MOS4D's
+              free run (ATE within 0.02 m of the pin's); p50 ms a scan and
+              peak memory per run; no kernel of sps_torch/csrc launched on
+              this path.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -1266,6 +1278,268 @@ def phase_trained(card, root):
     return out
 
 
+# Phase 11 (the baselines) against sps_tpu's pin: per-scan translation, ATE
+# and kept fraction at phase 8's LOC_* tolerances. The first scan's model
+# outputs: MOS4D computes in bf16 (sps_tpu feeds its MinkUNet the bf16
+# occupancy), so its logits are held within BASELINE_MOS4D_BAND of the
+# largest |logit| (on 20220629's first scan the port on the CPU read 0.254
+# of 9.125, 2.8%, from sps_tpu, the card 0.066 from the CPU); MapMOS (f32)
+# within BASELINE_MAPMOS_TOL of it; LTS scores (f32, in [0, 1]) within
+# BASELINE_LTS_TOL. Decisions (logit <= 0, score <= epsilon) must agree
+# except within that tolerance of the threshold.
+BASELINE_MOS4D_BAND = 2.0**-4
+BASELINE_MAPMOS_TOL = 1e-3
+BASELINE_LTS_TOL = 1e-4
+BASELINE_FILTERS = ("mask", "mos4d", "mapmos", "lts")
+# MOS4D's registration is chaotic in its keep mask: on 20220629's first scan
+# 5 of 5,014 kept points flipped within the bf16 band move the first
+# registration by 13 cm (the port's ICP on sps_tpu's keep mask lands within
+# 0.01 mm of sps_tpu's pose). So MOS4D is held at LOC_* on sps_tpu's
+# trajectory (pinned: every call runs the port's MOS4D at the pin's pose,
+# its decisions must equal the pin's outside the bf16 band, and the call
+# returns the pin's keep mask), and its free run's ATE within
+# BASELINE_FREE_ATE_TOL of the pin's.
+BASELINE_FREE_ATE_TOL = 0.02
+
+
+def pinned(filt, calls):
+    """Teacher forcing of a MOS4D filter along a pinned run: `calls` =
+    (poses, point counts, packed keep masks) of sps_tpu's filter calls.
+    Returns a filter of filt's class (state shared) whose i-th call runs the
+    port's model (push) at the pin's i-th pose, so that its buffer holds
+    what sps_tpu's held, records the gap between the pose it was given and
+    the pin's, the decisions that differ from the pin's and those of them
+    outside BASELINE_MOS4D_BAND of the largest |logit|, and returns the
+    pin's keep mask."""
+    poses, counts, keeps = calls
+
+    class Pinned(type(filt)):
+        def __call__(self, scan_xyz, pose):
+            i = len(self.record)
+            lg = self.push(scan_xyz, poses[i]).float().cpu().numpy()
+            want = np.unpackbits(keeps[i])[:counts[i]].astype(bool)
+            if len(lg) != len(want):
+                raise AssertionError(f"call {i}: {len(lg)} points, the pin's {len(want)}")
+            band = BASELINE_MOS4D_BAND * float(np.abs(lg).max())
+            diff = (lg <= 0) != want
+            self.record.append(dict(
+                pose_gap_m=float(np.abs(np.asarray(pose)[:3, 3] - poses[i][:3, 3]).max()),
+                flips=int(diff.sum()), flips_outside_band=int((diff & (np.abs(lg) > band)).sum()),
+                n=len(lg)))
+            return want
+
+    out = Pinned.__new__(Pinned)
+    out.__dict__.update(filt.__dict__)
+    out.record = []
+    return out
+
+
+def check_first_scan(name, got, want, tol, threshold):
+    """Model outputs against the pin: |got - want| <= tol, and the same side
+    of `threshold` wherever the pin lies farther than tol from it."""
+    err = float(np.abs(got - want).max())
+    far = np.abs(want - threshold) > tol
+    flips = int(((got <= threshold) != (want <= threshold))[far].sum())
+    near = int((~far).sum())
+    log(f"  first scan {name}: max |d| {err:.3g} (tolerance {tol:.3g}; max |pin| "
+        f"{float(np.abs(want).max()):.3g}), {near} of {len(want)} within the tolerance of "
+        f"{threshold}, {flips} decisions flipped outside it")
+    if not np.isfinite(got).all() or err > tol or flips:
+        raise AssertionError(f"first scan {name}: max |d| {err} (tolerance {tol}), {flips} flips")
+    return {"max_abs_err": err, "tol": tol, "near_threshold": near}
+
+
+def phase_baselines(card, root, profile):
+    """The baseline filters in the localization driver on the movers data
+    under `root` (phase 8's): (11a) the first scan of 20220629 at its
+    ground-truth pose through MOS4D (the scan alone in its 4-scan buffer),
+    MapMOS (counter 0, its 30 m crop subsampled as sps_tpu does) and LTS
+    (its range-image windows), from the round-5 checkpoints
+    (sps_torch/assets/baselines_r5_*.npz), held against sps_tpu's outputs
+    in loc_baselines_pin.npz; (11b) run_localization with mask, mos4d,
+    mapmos and lts (config_loc_movers_v2.yaml at epsilon 0.99, prior odom,
+    init_noise 0.05, refine, seed 0, one cache across the runs as the pin's)
+    on 20220629 and 20220629_clean, each scan's translation, the ATE and
+    the kept fraction against the pin (LOC_* tolerances), MOS4D pinned to
+    sps_tpu's keep masks (`pinned`: its own decisions must equal the pin's
+    outside the bf16 band at every call), then MOS4D's free run (ATE within
+    BASELINE_FREE_ATE_TOL of the pin's); p50 ms a scan (filter and
+    registration) and peak memory; no kernel of sps_torch/csrc runs on this
+    path (every launch count stays 0). The f32 convs and
+    matmuls of MapMOS and LTS compare like for like because phase 2 turned
+    TF32 off for the rest of the process; the phase checks that it still
+    is. --profile: kernel ms and launches a scan of each filter."""
+    import torch
+
+    from sps_torch import config
+    from sps_torch.convert import ASSETS
+    from sps_torch.data import blt
+    from sps_torch.data import range_image as ri
+    from sps_torch.stream import localize as loc
+
+    log("phase 11: baselines (mask, MOS4D, MapMOS, LTS) in the localization driver")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: phase 2 turns it off for the f32 comparisons")
+    pin = np.load(os.path.join(ASSETS, "loc_baselines_pin.npz"))
+    n_pin = int(pin["scans"])
+    cfg = dataclasses.replace(
+        config.load(os.path.join(HERE, "config", "config_loc_movers_v2.yaml"), data_root=root),
+        threshold=float(pin["epsilon"]))
+    mp = blt.load_map(root, cfg.data.map_file)
+    ns = cfg.tpu.scan_points
+    scans, _ = blt.load_sequences_raw(root, ["20220629"])
+    scan0 = scans[0][:ns].astype(np.float32)
+    world = torch.as_tensor(pin["first_scan/world"], device="cuda")
+    pose0 = pin["first_scan/pose"]
+    n0 = len(scan0)
+    first, filter_ms = {}, {}
+    reset_counts()
+    for mode in ("mos4d", "mapmos", "lts"):
+        filt = loc._make_baseline_filter(cfg, mode, mp, weights_dir=ASSETS)
+        if mode == "mos4d":
+            filt.buffer = [world]
+
+            def fn():
+                return filt.logits()[:n0]
+        elif mode == "mapmos":
+            local = filt.local_map(pose0[:3, 3])
+
+            def fn():
+                return filt.logits(world, local)[:n0]
+        else:
+            wins, _ = ri.windows(ri.project(scan0, filt.lidar), filt.lidar)
+
+            def fn():
+                return filt.scores(wins)
+        got = fn().float().cpu().numpy()
+        want = pin[f"first_scan/{mode}/" + ("scores" if mode == "lts" else "logits")]
+        if mode == "mos4d":
+            tol = BASELINE_MOS4D_BAND * float(np.abs(want).max())
+        elif mode == "mapmos":
+            tol = BASELINE_MAPMOS_TOL * float(np.abs(want).max())
+        else:
+            tol = BASELINE_LTS_TOL
+        first[mode] = check_first_scan(mode, got.reshape(-1), want.reshape(-1), tol,
+                                       cfg.threshold if mode == "lts" else 0.0)
+        filter_ms[mode] = time_ms(fn, runs=10, warmup=2)
+        del filt
+    mask = loc.bl.MaskFilter(mp, cfg.voxel_size)
+    sx0 = torch.as_tensor(scan0[:, :3], device="cuda")
+    p0 = torch.as_tensor(pose0, device="cuda")
+    filter_ms["mask"] = time_ms(lambda: mask.keep(sx0, p0), runs=10, warmup=2)
+    log(f"  filter alone on the first scan [{card}]: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in filter_ms.items()))
+
+    def localize(seq, mode, cache):
+        """One run_localization under the pin's protocol, timed: (result,
+        per-scan ms, peak bytes, seconds)."""
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        r = loc.run_localization(cfg, None, seq, mode, prior="odom", init_noise=0.05,
+                                 refine=True, seed=0, baseline_weights=ASSETS, cache=cache,
+                                 log=lambda _m: stamps.append(time.perf_counter()))
+        secs = time.perf_counter() - t
+        return r, np.diff([t] + stamps) * 1e3, torch.cuda.max_memory_allocated(), secs
+
+    def against_pin(key, r):
+        want = pin[key + "/poses"]
+        if r["poses"].shape != want.shape or len(want) != n_pin:
+            raise AssertionError(f"{key}: {r['poses'].shape} poses, the pin has {want.shape}")
+        gap = np.linalg.norm(r["poses"][:, :3, 3] - want[:, :3, 3], axis=-1)
+        ate_pin = float(pin[key + "/ate"])
+        kept_pin = float(pin[key + "/kept_frac_mean"])
+        return dict(ate=r["ate_rmse"], ate_pin=ate_pin, ate_gap_m=abs(r["ate_rmse"] - ate_pin),
+                    kept=r["kept_frac_mean"], kept_pin=kept_pin,
+                    kept_gap=abs(r["kept_frac_mean"] - kept_pin),
+                    max_pose_gap_m=float(gap.max()), mean_pose_gap_m=float(gap.mean()),
+                    finite=bool(np.isfinite(r["poses"]).all()))
+
+    cache, out, free = {}, {}, {}
+    mos4d = loc._make_baseline_filter(cfg, "mos4d", mp, weights_dir=ASSETS)
+    for seq in ("20220629", "20220629_clean"):
+        for mode in BASELINE_FILTERS:
+            key = f"{seq}/{mode}"
+            if mode == "mos4d":
+                cache["mos4d"] = pinned(mos4d, (pin[key + "/call_poses"], pin[key + "/call_n"],
+                                                pin[key + "/call_keeps"]))
+            r, per_scan, peak, secs = localize(seq, mode, cache)
+            res = out[key] = dict(**against_pin(key, r), s=secs, p50_ms=float(np.median(per_scan)),
+                                  peak=peak)
+            note = ""
+            if mode == "mos4d":
+                rec = cache["mos4d"].record
+                if len(rec) != len(pin[key + "/call_n"]):
+                    raise AssertionError(f"{key}: {len(rec)} filter calls, the pin's "
+                                         f"{len(pin[key + '/call_n'])}")
+                res["pinned"] = dict(calls=len(rec), flips=sum(c["flips"] for c in rec),
+                                     flips_outside_band=sum(c["flips_outside_band"] for c in rec),
+                                     points=sum(c["n"] for c in rec),
+                                     max_call_pose_gap_m=max(c["pose_gap_m"] for c in rec))
+                note = (f" (pinned: {res['pinned']['flips']} of {res['pinned']['points']} "
+                        f"decisions differ from the pin's over {len(rec)} calls, "
+                        f"{res['pinned']['flips_outside_band']} outside the bf16 band; the "
+                        f"driver's call poses within {res['pinned']['max_call_pose_gap_m']:.3g} m "
+                        f"of the pin's)")
+            log(f"  {key}: ATE {res['ate']} m (sps_tpu pin {res['ate_pin']}, gap "
+                f"{res['ate_gap_m']}), kept {res['kept']} (pin {res['kept_pin']}, gap "
+                f"{res['kept_gap']}), pose gap to the pin max {res['max_pose_gap_m']} m, mean "
+                f"{res['mean_pose_gap_m']} m; p50 {res['p50_ms']:.2f} ms a scan, peak "
+                f"{peak / 2**30:.2f} GiB, {secs:.1f} s{note} [{card}]")
+            if not res["finite"] or res["max_pose_gap_m"] > LOC_POSE_TOL:
+                raise AssertionError(f"{key}: a pose is {res['max_pose_gap_m']} m from sps_tpu's "
+                                     f"(tolerance {LOC_POSE_TOL})")
+            if res["ate_gap_m"] > LOC_ATE_TOL or res["kept_gap"] > LOC_KEPT_TOL:
+                raise AssertionError(f"{key}: ATE {res['ate']}, kept {res['kept']} against the "
+                                     f"pin's {res['ate_pin']}, {res['kept_pin']}")
+            if mode == "mos4d" and res["pinned"]["flips_outside_band"]:
+                raise AssertionError(f"{key}: MOS4D decisions differ from sps_tpu's outside the "
+                                     f"bf16 band: {res['pinned']}")
+        # MOS4D's free run (its own decisions) on the same sequence.
+        key = f"{seq}/mos4d"
+        r, per_scan, peak, secs = localize(seq, "mos4d", {"vmaps": cache["vmaps"]})
+        res = free[key] = dict(**against_pin(key, r), s=secs, p50_ms=float(np.median(per_scan)),
+                               peak=peak)
+        log(f"  {key} (free run): ATE {res['ate']} m (pin {res['ate_pin']}, gap "
+            f"{res['ate_gap_m']}; tolerance {BASELINE_FREE_ATE_TOL}), kept {res['kept']} (pin "
+            f"{res['kept_pin']}), pose gap to the pin max {res['max_pose_gap_m']} m, mean "
+            f"{res['mean_pose_gap_m']} m; p50 {res['p50_ms']:.2f} ms a scan, peak "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        if not res["finite"] or res["ate_gap_m"] > BASELINE_FREE_ATE_TOL:
+            raise AssertionError(f"{key} (free run): ATE {res['ate']} against the pin's "
+                                 f"{res['ate_pin']}")
+    launched = {k: v for k, v in read_counts().items()
+                if (sum(v.values()) if isinstance(v, dict) else v)}
+    if launched:
+        raise AssertionError(f"a kernel of sps_torch/csrc ran on the baselines' path: {launched}")
+    prof = {}
+    if profile:
+        scans, gts = blt.load_sequences_raw(root, ["20220629"])
+        for mode in BASELINE_FILTERS:
+            filt = mask if mode == "mask" else loc._make_baseline_filter(cfg, mode, mp,
+                                                                         weights_dir=ASSETS)
+
+            def step(i, filt=filt, mode=mode):
+                s = scans[i][:ns].astype(np.float32)
+                return filt(s) if mode == "lts" else filt(s[:, :3], gts[i].astype(np.float32))
+
+            step(0)
+            kernels, _, wall_us = profiled(step, 4)
+            prof[mode] = {"kernel_ms": sum(_device_us(e) for e in kernels) / 4e3,
+                          "launches": sum(e.count for e in kernels) / 4, "wall_ms": wall_us / 4e3}
+            log(f"  profile {mode} [{card}]: kernels {prof[mode]['kernel_ms']:.3f} ms a scan, "
+                f"{prof[mode]['launches']:.0f} launches a scan, wall {prof[mode]['wall_ms']:.2f} "
+                f"ms a scan; top: " + "; ".join(
+                    f"{e.key[:48]} {_device_us(e) / 4e3:.3f} ms"
+                    for e in sorted(kernels, key=_device_us, reverse=True)[:4]))
+            del filt
+    del mask, mos4d, cache
+    torch.cuda.empty_cache()
+    return {"first_scan": first, "filter_ms": filter_ms, "runs": out, "mos4d_free": free,
+            "profile": prof}
+
+
 # Phase 9 (offline). 9a: the gate of tests/test_int8_parity.py (float
 # uIoU above GATE_FLOAT_MIN, each int8 run within GATE_INT8_TOL of the float
 # run) and each uIoU within GATE_PIN_TOL of sps_tpu's pin.
@@ -2183,6 +2457,7 @@ def main() -> int:
     movers_root = movers_data(pin_scans)
     try:
         trained = phase_trained(card, movers_root)
+        baselines = phase_baselines(card, movers_root, profile)
         gate = phase_gate(card)
         predict_trained = phase_predict_trained(card, movers_root)
     finally:
@@ -2274,7 +2549,11 @@ def main() -> int:
         f"shipping p50 {ship['p50']:.2f} ms, peak {ship['peak'] / 2**30:.2f} GiB; loop p50 "
         f"{loop['refine']['p50']:.2f} ms (refine), {loop['norefine']['p50']:.2f} ms (no refine); "
         f"trained ATE 20220629 sps {trained['20220629/sps']['ate']:.4f} m, raw "
-        f"{trained['20220629/raw']['ate']:.4f} m; gate uIoU " + ", ".join(
+        f"{trained['20220629/raw']['ate']:.4f} m; baselines ATE 20220629 " + ", ".join(
+            f"{m} {baselines['runs'][f'20220629/{m}']['ate']:.4f}" for m in BASELINE_FILTERS)
+        + " m, p50 ms a scan " + ", ".join(
+            f"{m} {baselines['runs'][f'20220629/{m}']['p50_ms']:.1f}" for m in BASELINE_FILTERS)
+        + "; gate uIoU " + ", ".join(
             f"{k} {v['uiou']:.5f}" for k, v in gate.items())
         + f"; predict dIoU v1 {predict_trained['v1']['means']['dIoU']:.4f}, v2 "
         f"{predict_trained['v2']['means']['dIoU']:.4f}; BLT predict p50 {predict_blt['p50']:.2f} "

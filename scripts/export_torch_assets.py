@@ -3,7 +3,7 @@
 its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
-        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train]
+        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -57,10 +57,34 @@ Writes, under sps_torch/assets/:
                                   parameters after 1 (and, for mse and stem_zband,
                                   after 3) steps on the same batch; and `meta`, the
                                   configuration as JSON (train_meta), from which
-                                  chip_smoke.py rebuilds it without this script.
+                                  chip_smoke.py rebuilds it without this script;
+  baselines_r5_{mos4d,mapmos,lts}.npz
+                                  the round-5 baseline checkpoints
+                                  ckpt_baselines_r5/<model> (orbax), params and
+                                  batch_stats flattened as the v2 one, f32,
+                                  compressed (+ <model>.config.json beside);
+                                  sps_torch.convert.load_baseline_npz reads them;
+  loc_baselines_pin.npz           sps_tpu's run_localization with mask, mos4d,
+                                  mapmos and lts (baseline_weights
+                                  ckpt_baselines_r5) under loc_movers_v2_pin.npz's
+                                  protocol and data, one cache across the runs
+                                  (sequence by sequence, filter by filter):
+                                  per-scan poses, ATE and kept fraction per
+                                  filter and sequence, and for MOS4D and MapMOS
+                                  every filter call's pose and keep mask
+                                  (np.packbits over SCAN_POINTS, with the
+                                  scan's point count); and 20220629's first scan
+                                  (cut to SCAN_POINTS) at its ground-truth pose:
+                                  its world-frame points, MOS4D's logits (the
+                                  scan alone in the 4-scan buffer) and keep,
+                                  MapMOS's logits (counter 0) and keep, LTS's
+                                  window scores and kept points; chip_smoke.py
+                                  phase 11 and tests/test_torch_{lts,
+                                  localize_baselines}.py read it.
 
-Runs on the CPU: ckpt, loop and train in a few minutes, loc ~14 min (--scans 20),
-parity and predict several minutes each (bf16 on XLA:CPU is slow).
+Runs on the CPU: ckpt, loop, train and baselines in a few minutes, loc ~14 min
+(--scans 20), parity and predict several minutes each (bf16 on XLA:CPU is slow),
+loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU).
 """
 
 from __future__ import annotations
@@ -86,6 +110,9 @@ LOC_SEQS = ("20220629", "20220629_clean")
 LOC_FILTERS = ("raw", "sps", "oracle")
 LOC_EPS = 0.99  # calibration.json's epsilon_ate
 LOC_PROTOCOL = dict(prior="odom", init_noise=0.05, refine=True, seed=0, icp_iters=12)
+BASELINES_DIR = os.path.join(HERE, "ckpt_baselines_r5")
+BASELINES = ("mos4d", "mapmos", "lts")
+LOC_BASELINE_FILTERS = ("mask", "mos4d", "mapmos", "lts")
 # tests/test_torch_loop.py's world and loop.
 LOOP_WORLD = dict(sequences=("20220629",), scans_per_seq=4, seed=3, extent=10.0, n_rays=400,
                   ground_points=6000, n_stable=10)
@@ -214,6 +241,111 @@ def export_loc_pin(scans):
         for k in ("overflow", "n_scan_voxels", "n_submap_voxels", "n_kept"):
             out[f"first_scan/{k}"] = np.int64(int(stats[k]))
         np.savez(os.path.join(ASSETS, "loc_movers_v2_pin.npz"), **out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def export_baselines():
+    """The round-5 baseline checkpoints -> baselines_r5_<model>.npz (+ config)."""
+    for model in BASELINES:
+        path = os.path.join(BASELINES_DIR, model)
+        flat = flat_tree(restore_variables(path))
+        name = f"baselines_r5_{model}"
+        np.savez_compressed(os.path.join(ASSETS, name + ".npz"), **flat)
+        shutil.copyfile(path + ".config.json", os.path.join(ASSETS, name + ".config.json"))
+        n = sum(v.size for k, v in flat.items() if k.startswith("params/"))
+        log(f"checkpoint {name}: {len(flat)} leaves, {n} parameters")
+
+
+def export_loc_baselines_pin(scans):
+    """sps_tpu's run_localization with the baseline filters (mask, mos4d,
+    mapmos, lts; weights ckpt_baselines_r5) under loc_movers_v2_pin.npz's
+    protocol, and each model's raw output on 20220629's first scan."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu import register as reg
+    from sps_tpu.data import blt
+    from sps_tpu.data import range_image as ri
+    from sps_tpu.stream import baselines as bl
+    from sps_tpu.stream.localize import _make_baseline_filter, run_localization
+    from sps_tpu.utils.geometry import transform_points
+
+    root = tempfile.mkdtemp(prefix="movers_")
+    try:
+        movers_dataset(root, scans)
+        cfg = loc_config(root)
+        out = {"scans": np.int64(scans), "epsilon": np.float64(LOC_EPS)}
+        last = {}
+        reg_jit = jax.jit(lambda vms, s, v, p: reg.register_pyramid(
+            vms, s, v, p, iters=LOC_PROTOCOL["icp_iters"]))
+
+        def reg_fn(vms, s, v, p):
+            pose, stats = reg_jit(vms, s, v, p)
+            last["pose"] = np.asarray(pose)
+            return pose, stats
+
+        # Every call of the MOS4D and MapMOS filters: the pose it was given
+        # and the keep mask it returned (padded to SCAN_POINTS), in call order.
+        calls = []
+        for cls in (bl.MOS4DFilter, bl.MapMOSFilter):
+            def recorded(self, scan_xyz, pose, _call=cls.__call__):
+                keep = np.asarray(_call(self, scan_xyz, pose))
+                calls.append((np.asarray(pose, np.float32), keep))
+                return keep
+            cls.__call__ = recorded
+        ns = cfg.tpu.scan_points
+        # One cache for every run, as the experiment driver shares it: the
+        # filters (MapMOS's scan counter included) carry over from the
+        # first sequence to the second.
+        cache = {"reg_fn": reg_fn, "reg_fn_w": None}
+        for seq in LOC_SEQS:
+            for mode in LOC_BASELINE_FILTERS:
+                poses = []
+                calls.clear()
+                t = time.time()
+                r = run_localization(cfg, None, seq, mode, cache=cache,
+                                     baseline_weights=BASELINES_DIR,
+                                     log=lambda _m: poses.append(last["pose"]), **LOC_PROTOCOL)
+                key = f"{seq}/{mode}"
+                out[key + "/poses"] = np.stack(poses)
+                out[key + "/ate"] = np.float64(r["ate_rmse"])
+                out[key + "/kept_frac_mean"] = np.float64(r["kept_frac_mean"])
+                if calls:
+                    keeps = np.zeros((len(calls), ns), bool)
+                    for i, (_, k) in enumerate(calls):
+                        keeps[i, :len(k)] = k
+                    out[key + "/call_poses"] = np.stack([p for p, _ in calls])
+                    out[key + "/call_n"] = np.asarray([len(k) for _, k in calls])
+                    out[key + "/call_keeps"] = np.packbits(keeps, axis=1)
+                log(f"{key}: ATE {r['ate_rmse']:.4f} m, kept {r['kept_frac_mean']:.3f} "
+                    f"({time.time() - t:.0f} s)")
+        # 20220629's first scan at its ground-truth pose, through fresh
+        # filters: the world-frame points, MOS4D's logits (the scan alone
+        # in buffer slot 0), MapMOS's (counter 0), and LTS's window scores.
+        scans0, gt = blt.load_sequences_raw(root, [LOC_SEQS[0]])
+        mp = blt.load_map(root, cfg.data.map_file)
+        ns = cfg.tpu.scan_points
+        scan = scans0[0][:ns].astype(np.float32)
+        pose = gt[0].astype(np.float32)
+        out["first_scan/world"] = np.asarray(transform_points(jnp.asarray(scan[:, :3]),
+                                                              jnp.asarray(pose)))
+        out["first_scan/pose"] = pose
+        for mode in ("mos4d", "mapmos"):
+            filt = _make_baseline_filter(cfg, mode, mp, weights_dir=BASELINES_DIR)
+            logits = {}
+            fn = filt._fn
+            filt._fn = lambda *a: logits.setdefault("v", fn(*a))
+            keep = filt(scan[:, :3], pose)
+            lg = logits["v"][0] if mode == "mos4d" else logits["v"]
+            out[f"first_scan/{mode}/logits"] = np.asarray(lg, np.float32)[:len(scan)]
+            out[f"first_scan/{mode}/keep"] = np.asarray(keep)
+        filt = _make_baseline_filter(cfg, "lts", mp, weights_dir=BASELINES_DIR)
+        wins, _ = ri.windows(ri.project(scan, filt.lidar), filt.lidar)
+        out["first_scan/lts/scores"] = np.asarray(filt._fn(filt.variables, jnp.asarray(wins)),
+                                                  np.float32)
+        out["first_scan/lts/kept"] = filt(scan)
+        np.savez_compressed(os.path.join(ASSETS, "loc_baselines_pin.npz"), **out)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -501,9 +633,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
-    ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train",
+    ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train,"
+                                      "baselines,loc_baselines",
                     help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
-                         "predict, train")
+                         "predict, train, baselines, loc_baselines")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -521,6 +654,10 @@ def main(argv=None):
         export_predict_pin(args.scans)
     if "train" in parts:
         export_train_pin()
+    if "baselines" in parts:
+        export_baselines()
+    if "loc_baselines" in parts:
+        export_loc_baselines_pin(args.scans)
 
 
 if __name__ == "__main__":

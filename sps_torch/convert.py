@@ -9,8 +9,11 @@ scripts/export_torch_assets.py (leaves keyed by their tree path,
 sps_torch/assets/ckpt_loc_movers_v2.npz. `load_me_ckpt` reads the
 reference's MinkowskiEngine checkpoints (a Lightning .ckpt or a bare
 state_dict; counterpart of sps_tpu/convert.py::torch_ckpt_to_variables) and
-`state_dict_from_me` maps their keys and kernel layouts. `load_weights`
-also reads the port's own trainer checkpoints (sps_torch.utils.checkpoint).
+`state_dict_from_me` maps their keys and kernel layouts (SPS, MOS4D and
+MapMOS modules). `load_weights` also reads the port's own trainer
+checkpoints (sps_torch.utils.checkpoint). Of the baselines, MOS4D and
+MapMOS share SPSModel's MinkUNet tree; LTS's flax Dense kernels become
+nn.Linear weights (`baseline_state_dict_from_jax`, `load_baseline_npz`).
 Names mirror flax's (MinkUNet.block8_0.conv1.kernel,
 MinkUNet.block8_0.norm1.{scale,bias,mean,var}); kernels keep their
 (k^3, kt, Cin, Cout) layout with x-slowest offsets, and the torch modules
@@ -49,8 +52,8 @@ def state_dict_from_jax(variables_np: dict) -> dict[str, torch.Tensor]:
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 
-def load_npz(path: str) -> dict[str, torch.Tensor]:
-    """An exported checkpoint npz -> SPSModel state_dict."""
+def npz_tree(path: str) -> dict:
+    """An exported npz (leaves keyed by tree path) -> the nested numpy tree."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -59,7 +62,31 @@ def load_npz(path: str) -> dict[str, torch.Tensor]:
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
-    return state_dict_from_jax(tree)
+    return tree
+
+
+def load_npz(path: str) -> dict[str, torch.Tensor]:
+    """An exported checkpoint npz -> SPSModel state_dict."""
+    return state_dict_from_jax(npz_tree(path))
+
+
+def baseline_state_dict_from_jax(model: str, variables_np: dict) -> dict[str, torch.Tensor]:
+    """sps_tpu's variables of baseline `model` ("mos4d", "mapmos" or "lts";
+    numpy leaves) -> the port's state_dict. MOS4D and MapMOS share SPSModel's
+    MinkUNet tree; for LTS a flax Dense's (in, out) kernel becomes
+    nn.Linear's (out, in) weight, and BN1d keeps scale/bias/mean/var."""
+    if model not in ("mos4d", "mapmos", "lts"):
+        raise ValueError(f"unknown baseline {model!r}")
+    sd = state_dict_from_jax(variables_np)
+    if model != "lts":
+        return sd
+    return {(k[:-len("kernel")] + "weight" if k.endswith(".kernel") else k):
+            (v.T.contiguous() if k.endswith(".kernel") else v) for k, v in sd.items()}
+
+
+def load_baseline_npz(path: str, model: str) -> dict[str, torch.Tensor]:
+    """An exported baseline npz (baselines_r5_<model>.npz) -> its state_dict."""
+    return baseline_state_dict_from_jax(model, npz_tree(path))
 
 
 # The reference's MinkowskiEngine (ME) layout. ME stores a conv kernel as
@@ -134,16 +161,26 @@ def _bn(sd, prefix):
              "var": sd.pop(prefix + ".bn.running_var")})
 
 
-ME_PREFIX = "model.MinkUNet."  # the reference SPS module's keys (predict.py:56-58)
+# The reference modules' key prefixes: SPS and MOS4D (predict.py:56-58,
+# mos4d_node.py:65-69) and MapMOS (mapmos_node.py:48-53).
+ME_PREFIXES = ("model.MinkUNet.", "mos.MinkUNet.")
+
+
+def _strip_me_prefix(key: str) -> str:
+    for p in ME_PREFIXES:
+        if key.startswith(p):
+            return key[len(p):]
+    return key
 
 
 def state_dict_from_me(sd: dict, *, layers=(1,) * 8, first_kernel: int = 5,
                        block_kernel: int = 3) -> dict[str, torch.Tensor]:
-    """A reference state_dict (ME layout, keys with or without ME_PREFIX,
-    tensors or arrays) -> SPSModel state_dict. Raises when a tensor of the
-    input is left unused."""
-    sd = {(k[len(ME_PREFIX):] if k.startswith(ME_PREFIX) else k):
-          (v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v))
+    """A reference state_dict (ME layout, keys with or without one of
+    ME_PREFIXES, tensors or arrays) -> the state_dict of a MinkUNet model
+    (SPSModel, MOS4DNet, MapMOSNet). Raises when a tensor of the input is
+    left unused."""
+    sd = {_strip_me_prefix(k): (v.detach().cpu().numpy() if hasattr(v, "detach")
+                                else np.asarray(v))
           for k, v in sd.items() if "num_batches_tracked" not in k}
     params: dict = {}
     stats: dict = {}

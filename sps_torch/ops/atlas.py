@@ -129,13 +129,16 @@ def _compact(occ_cells, capacity, extent, origin, src_cells, src_ok):
 
 
 def voxelize_bricks(coords, batch_idx, t_idx, valid, *, num_time: int,
-                    brick_capacity: int, brick_side: int, extent: tuple):
+                    brick_capacity: int, brick_side: int, extent: tuple, features=None):
     """Dedup integer voxel coords into atlas bricks.
 
     Returns (grid, point2slot): point2slot is the flat index brick_row *
     bs^3 + local into the (B*bs^3,) slot view (EMPTY if invalid). The
     dynamic origin is the min valid brick coordinate; points outside the
-    static window set the overflow flag and are dropped."""
+    static window set the overflow flag and are dropped. With `features`
+    (N, C) it returns (grid, point2slot, pooled) as well: the mean of the
+    features per (brick, voxel, t), (B, bs, bs, bs, T*C), 0 where no point
+    falls."""
     bs = brick_side
     assert bs & (bs - 1) == 0 and bs >= 2
     shift = bs.bit_length() - 1
@@ -172,7 +175,20 @@ def voxelize_bricks(coords, batch_idx, t_idx, valid, *, num_time: int,
 
     grid = AtlasGrid(coords=coords_c, occ=occ, num_bricks=num, atlas=atlas,
                      origin=origin, overflow=overflow, extent=tuple(extent))
-    return grid, point2slot
+    if features is None:
+        return grid, point2slot
+    # Counts and sums per (brick, voxel, t) slot in flat buffers (points
+    # without a kept brick row add zeros to the dump row), then the mean.
+    c = features.shape[-1]
+    slot = (pb * bvol + lflat.long()) * num_time + tcl
+    w = ok.to(features.dtype)
+    nslot = (brick_capacity + 1) * bvol * num_time
+    cnt = torch.zeros(nslot, dtype=features.dtype, device=dev).index_add_(0, slot, w)
+    sums = torch.zeros((nslot, c), dtype=features.dtype, device=dev).index_add_(
+        0, slot, features * w[:, None])
+    nreal = brick_capacity * bvol * num_time
+    pooled = sums[:nreal] / torch.clamp_min(cnt[:nreal], 1.0)[:, None]
+    return grid, point2slot, pooled.reshape(brick_capacity, bs, bs, bs, num_time * c)
 
 
 def downsample(grid: AtlasGrid, coarse_capacity: int, coarse_extent: tuple):

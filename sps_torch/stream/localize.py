@@ -8,26 +8,45 @@ ground truth. The pose prior is the noisy ground truth ("odom") or a
 damped constant-velocity prediction from the past estimates ("cv").
 
 Filters: "raw" (every point), "oracle" (the ground-truth stable points),
-"sps" (the streaming filter's keep at epsilon) and "sps-soft" (every point,
-weighted by (1 - score)^2). The baselines "mask", "mos4d", "mapmos" and
-"lts" are not ported yet (ROADMAP, modules to port: the baselines).
+"sps" (the streaming filter's keep at epsilon), "sps-soft" (every point,
+weighted by (1 - score)^2), and the baselines of stream/baselines.py:
+"mask" (the map-voxel overlap), "mos4d" (a 4-scan buffer), "mapmos" (the
+scan against a 30 m map crop) and "lts" (range-image windows at epsilon;
+it registers its resampled kept points). The baselines' weights are
+npz files (scripts/export_torch_assets.py writes the round-5 ones to
+sps_torch/assets/baselines_r5_<model>.npz); without them the models take
+seeded random weights.
+
+    python -m sps_torch.stream.localize -c config/config_loc_movers_v2.yaml \
+        -w sps_torch/assets/ckpt_loc_movers_v2.npz -seq 20220629 --data DIR \
+        --filter mos4d --baseline-weights sps_torch/assets [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import glob
+import json
+import os
 
 import numpy as np
 import torch
 
+from sps_torch import convert
 from sps_torch import register as reg
 from sps_torch.config import Config
 from sps_torch.data import blt
+from sps_torch.models import lts
+from sps_torch.models.mapmos import MapMOSConfig, MapMOSNet
+from sps_torch.models.mos4d import MOS4DConfig, MOS4DNet
+from sps_torch.stream import baselines as bl
 from sps_torch.stream.engine import StreamingFilter
 from sps_torch.structs import resolve_device
 
 FILTERS = ("sps", "sps-soft", "mask", "raw", "mos4d", "mapmos", "lts", "oracle")
-PORTED = ("sps", "sps-soft", "raw", "oracle")
+BASELINES = ("mos4d", "mapmos", "lts")
+MOS4D_SCANS = 4  # the localization driver's MOS4D buffer
 # Filters whose keep decision depends on the pose they are evaluated at.
 POSE_CONSUMING = ("sps", "sps-soft", "mask", "mos4d", "mapmos")
 # Below this share of the valid points a pose-consuming filter abstains for
@@ -87,9 +106,46 @@ def cv_predict(poses: list[np.ndarray], k: int = 3, damp: float = 0.85) -> np.nd
     return poses[-1] @ _se3_exp_np(damp * mean_log)
 
 
+def _baseline_state_dict(weights_dir: str | None, mode: str) -> dict | None:
+    """The state_dict of baseline `mode` from the npz in `weights_dir` whose
+    name ends in `<mode>.npz`; None without a directory. Raises when the
+    directory holds no such file, or more than one."""
+    if not weights_dir:
+        return None
+    found = sorted(glob.glob(os.path.join(weights_dir, f"*{mode}.npz")))
+    if len(found) != 1:
+        raise FileNotFoundError(f"want one *{mode}.npz in {weights_dir}, found {found}")
+    return convert.load_baseline_npz(found[0], mode)
+
+
+def _make_baseline_filter(cfg: Config, mode: str, map_points: np.ndarray,
+                          weights_dir: str | None = None, device=None):
+    """A baseline filter at the driver's settings: MOS4D on a 4-scan buffer,
+    MapMOS on SCAN_POINTS + SUBMAP_POINTS, LTS at cfg.threshold. Weights
+    from `weights_dir`, else seeded random ones (seed 0)."""
+    ns = cfg.tpu.scan_points
+    caps = cfg.sps_config(batch_size=1).caps
+    sd = _baseline_state_dict(weights_dir, mode)
+    if mode == "mos4d":
+        mcfg = MOS4DConfig(voxel_size=cfg.voxel_size, n_scans=MOS4D_SCANS, caps=caps)
+        if sd is None:
+            sd = MOS4DNet(mcfg, torch.Generator().manual_seed(0)).state_dict()
+        return bl.MOS4DFilter(mcfg, sd, ns, device=device)
+    if mode == "mapmos":
+        mcfg = MapMOSConfig(voxel_size=cfg.voxel_size, caps=caps)
+        if sd is None:
+            sd = MapMOSNet(mcfg, torch.Generator().manual_seed(0)).state_dict()
+        return bl.MapMOSFilter(mcfg, sd, map_points, ns, cfg.tpu.submap_points, device=device)
+    if mode == "lts":
+        return bl.LTSFilter(lts.init_state_dict(0) if sd is None else sd,
+                            epsilon=cfg.threshold, device=device)
+    raise ValueError(mode)
+
+
 def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: str = "sps",
                      init_noise: float = 0.0, prior: str = "cv",
-                     seed: int = 0, epsilon: float | None = None, refine: bool = True,
+                     seed: int = 0, baseline_weights: str | None = None,
+                     epsilon: float | None = None, refine: bool = True,
                      cache: dict | None = None, log=print, device=None) -> dict:
     """Localize one sequence; returns {ate_rmse, kept_frac_mean, the knobs,
     and per scan: poses (n, 4, 4) and kept_frac}.
@@ -101,12 +157,12 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
     otherwise, with `refine`, they re-filter at the registered pose and
     register once more when the keep count holds. A filter that keeps less
     than GUARD_FLOOR of the valid points abstains for the scan. `cache`
-    (shared across calls) holds the registration maps and the filter."""
+    (shared across calls) holds the registration maps and the filters; a
+    cached MOS4D filter starts each call with an empty buffer, a cached
+    MapMOS filter keeps counting its scans. `baseline_weights`: a directory
+    of baseline npz files (see _baseline_state_dict)."""
     if filter_mode not in FILTERS:
         raise ValueError(f"unknown filter {filter_mode!r}; one of {FILTERS}")
-    if filter_mode not in PORTED:
-        raise NotImplementedError(
-            f"filter {filter_mode!r} is not ported yet (ROADMAP, modules to port: the baselines)")
     dev = resolve_device(device)
     if epsilon is not None:
         cfg = dataclasses.replace(cfg, threshold=epsilon)
@@ -122,6 +178,20 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
             cache["sps"] = StreamingFilter(cfg, state_dict, map_points, device=dev)
         filt = cache["sps"]
         filt.eps = cfg.threshold
+    elif filter_mode == "mask":
+        # The reference's mask node: keep the points whose voxel (at
+        # VOXEL_SIZE) holds a map point.
+        if "mask" not in cache:
+            cache["mask"] = bl.MaskFilter(map_points, cfg.voxel_size, device=dev)
+        filt = cache["mask"]
+    elif filter_mode in BASELINES:
+        if filter_mode in cache:
+            filt = cache[filter_mode]
+            if isinstance(filt, bl.MOS4DFilter):
+                filt.buffer = []  # a fresh sequence
+        else:
+            filt = cache[filter_mode] = _make_baseline_filter(
+                cfg, filter_mode, map_points, weights_dir=baseline_weights, device=dev)
     ns = cfg.tpu.scan_points
     rng = np.random.default_rng(seed)
 
@@ -156,10 +226,20 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
                 w = (1.0 - scores.float().cpu().numpy()) ** 2
                 return (w * sv).astype(np.float32)
 
-            def apply_filter(at_pose):
+            def apply_filter(at_pose, rerun=False):
                 if filter_mode == "sps":
                     _, keep_d, _ = filt(sx, sv, sl, at_pose.astype(np.float32))
                     return keep_d.cpu().numpy()
+                if filter_mode == "mask":
+                    return filt.keep(sx_t, torch.as_tensor(at_pose.astype(np.float32),
+                                                           device=dev)).cpu().numpy() & sv
+                if filter_mode in ("mos4d", "mapmos"):
+                    if rerun and isinstance(filt, bl.MOS4DFilter):
+                        filt.buffer.pop()  # the rerun replaces the newest buffered scan
+                    km = filt(scan[:n, :3].astype(np.float32), at_pose.astype(np.float32))
+                    keep = sv.copy()
+                    keep[:n] &= km[:n]
+                    return keep
                 return sv
 
             def guard(k):
@@ -168,7 +248,18 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
             keep = sv
             point_w = None
             cv_raw_first = prior == "cv" and i > 1 and filter_mode in POSE_CONSUMING
-            if filter_mode == "oracle":
+            if filter_mode == "lts":
+                # LTS resamples through the range image: register its kept
+                # points.
+                kept_pts = filt(scan[:n, :4].astype(np.float32))
+                m = min(len(kept_pts), ns)
+                sx = np.zeros((ns, 3), np.float32)
+                sx[:m] = kept_pts[:m, :3]
+                sv = np.zeros((ns,), bool)
+                sv[:m] = True
+                sx_t = torch.as_tensor(sx, device=dev)
+                keep = sv
+            elif filter_mode == "oracle":
                 keep = sv & (sl < 0.5)
             elif cv_raw_first:
                 keep = sv
@@ -199,7 +290,7 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
                     pose, stats_r = do_reg(sx_t, kept, est0, point_w)
             elif refine and filter_mode in POSE_CONSUMING:
                 est0 = pose
-                kept2 = apply_filter(est0) & sv
+                kept2 = apply_filter(est0, rerun=True) & sv
                 # A halved keep count means the estimate moved away from the
                 # overlap: keep the first registration then.
                 if kept2.sum() >= max(0.5 * kept.sum(), GUARD_FLOOR * sv.sum()):
@@ -230,3 +321,34 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
         "poses": est,
         "kept_frac": np.asarray(kept_frac, np.float64),
     }
+
+
+def main(argv=None):
+    from sps_torch import config as cfg_mod
+    from sps_torch.models import spsnet
+
+    ap = argparse.ArgumentParser(description="Localize a sequence: filter, register, ATE.")
+    ap.add_argument("-c", "--config", default="./config/config.yaml")
+    ap.add_argument("-w", "--weights", default=None,
+                    help="SPS weights (.npz, best.pt or a reference .ckpt); default: seeded "
+                         "random ones")
+    ap.add_argument("-seq", "--sequence", required=True)
+    ap.add_argument("--data", default=None, help="dataset root (defaults to $DATA)")
+    ap.add_argument("--filter", dest="filter_mode", choices=FILTERS, default="sps")
+    ap.add_argument("--init-noise", type=float, default=0.0)
+    ap.add_argument("--baseline-weights", default=None,
+                    help="directory of the baselines' <model>.npz (e.g. sps_torch/assets); "
+                         "default: seeded random weights")
+    ap.add_argument("--device", default=None, help="default: the card; 'cpu' for the CPU")
+    args = ap.parse_args(argv)
+    cfg = cfg_mod.load(args.config, data_root=args.data)
+    sd = (convert.load_weights(args.weights, cfg.sps_config(1)) if args.weights
+          else spsnet.init_state_dict(cfg.sps_config(1)))
+    out = run_localization(cfg, sd, args.sequence, args.filter_mode, init_noise=args.init_noise,
+                           baseline_weights=args.baseline_weights, device=args.device)
+    out = {k: v.tolist() if isinstance(v, np.ndarray) else v for k, v in out.items()}
+    print(json.dumps(out, indent=2))
+
+
+if __name__ == "__main__":
+    main()

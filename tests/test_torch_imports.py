@@ -44,7 +44,8 @@ def test_every_module_imports_with_jax_blocked():
     for m in ("register", "stream.loop", "stream.localize", "data.blt", "data.synthetic",
               "convert", "stream.engine", "pipeline", "eval", "ops.radius", "data.prefetch",
               "stream.replay", "scripts.predict", "train", "ops.augment", "utils.checkpoint",
-              "scripts.train"):
+              "scripts.train", "data.range_image", "models.lts", "models.mos4d",
+              "models.mapmos", "stream.baselines"):
         assert f"sps_torch.{m}" in mods, m
 
 
@@ -77,13 +78,16 @@ def test_streaming_filter_defaults_to_the_card():
         StreamingFilter(cfg, {}, np.zeros((10, 3), np.float32))
 
 
-@pytest.mark.parametrize("entry", ["build_voxel_map", "LocalizationLoop", "run_localization"])
+@pytest.mark.parametrize("entry", ["build_voxel_map", "LocalizationLoop", "run_localization",
+                                   "run_localization_mos4d", "MaskFilter", "LTSFilter"])
 def test_new_entry_points_default_to_the_card(entry):
-    """The registration map, the loop and run_localization run on
-    the card unless device="cpu" is passed."""
+    """The registration map, the loop, run_localization (a baseline's too)
+    and the baseline filters run on the card unless device="cpu" is passed."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     from sps_torch import config, register
+    from sps_torch.models import lts
+    from sps_torch.stream import baselines
     from sps_torch.stream.localize import run_localization
     from sps_torch.stream.loop import LocalizationLoop
 
@@ -91,7 +95,10 @@ def test_new_entry_points_default_to_the_card(entry):
     pts = np.zeros((10, 3), np.float32)
     call = {"build_voxel_map": lambda: register.build_voxel_map(pts, 0.4),
             "LocalizationLoop": lambda: LocalizationLoop(cfg, {}, pts),
-            "run_localization": lambda: run_localization(cfg, {}, "20220629", "raw")}[entry]
+            "run_localization": lambda: run_localization(cfg, {}, "20220629", "raw"),
+            "run_localization_mos4d": lambda: run_localization(cfg, {}, "20220629", "mos4d"),
+            "MaskFilter": lambda: baselines.MaskFilter(pts, 0.1),
+            "LTSFilter": lambda: baselines.LTSFilter(lts.init_state_dict())}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
 

@@ -8,7 +8,8 @@ growth and movers: per-scan poses within 1e-3 m (the ICP's sums are taken
 in another order; tests/test_torch_register.py holds single registrations
 within 1e-4), ATE within 1e-3 m, kept fractions equal. cv_predict and
 ate_rmse are the same numpy code on both sides. The "sps-soft" filter is in
-tests/test_torch_localize_soft.py."""
+tests/test_torch_localize_soft.py, the baselines in
+tests/test_torch_localize_baselines.py."""
 
 import filecmp
 import os
@@ -160,9 +161,3 @@ def check_run(got, want, poses, n_scans, kept_tol):
     for key in ("filter", "n_scans", "prior", "epsilon", "init_noise", "refine", "icp_iters",
                 "seed", "cv_raw_first"):
         assert got[key] == want[key], key
-
-
-@pytest.mark.parametrize("mode", ["mask", "mos4d", "mapmos", "lts"])
-def test_baselines_are_not_ported_yet(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP, modules to port: the baselines"):
-        tloc.run_localization(tcfg_mod.Config(), {}, "20220629", mode, device="cpu")
