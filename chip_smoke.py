@@ -146,6 +146,30 @@ Phases, each of which raises (and exits non-zero) on failure:
               free run (ATE within 0.02 m of the pin's); p50 ms a scan and
               peak memory per run; no kernel of sps_torch/csrc launched on
               this path.
+  12. hash  - the hash engines (sps_tpu's defaults and config_small.yaml's
+              gather engine): (12a) config/config_small.yaml as shipped
+              (ENGINE gather, JOIN_MODE hash, f32, TF32 off, full width,
+              phase 3's world and weights): the first scan's voxelize hash
+              table, point2voxel and the hash join's mask bit-equal on the
+              card, on the CPU and in sps_tpu's pin
+              (sps_torch/assets/hash_engines_pin.npz), assemble_batch card vs
+              CPU bit-equal, StreamingFilter card vs CPU and vs the pin (rtol
+              1e-3 / atol 1e-4, equal stats), then fit (4 steps),
+              predict_sequence, replay_sequence and run_localization on that
+              world written to disk and 6 steps on a fixed batch whose loss
+              must fall; (12b) the gather engine (VOXELS raised where the
+              scans need more, logged), the brick engine (side 8, region) and
+              the atlas engine (halo) on phase 6's first 3 scans, f32, the
+              rebuild program: no overflow, scores within rtol 1e-3 / atol
+              1e-4 of the atlas engine's; (12c) bf16 at BLT scale over phase
+              6's ten scans: the gather engine, the brick engine in region
+              mode with INT8 off and on: p50, host syncs a scan, peak
+              memory, launch counts (21 launches of the int8 gather form a
+              scan with INT8 on, none else), a profile of 4 scans (kernel ms
+              and launches a scan, the sps.hash.build / sps.hash.lookup
+              ranges), the probe loops' rounds in one scan by kind, and with
+              INT8 on every int8 conv of a scan bit for bit against its plain
+              version.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -2397,6 +2421,428 @@ def phase_train_stem_zband(card, shipped, sd, stable, data, ship_run, root):
                 stem_ms=stem, kernels_ms_a_scan=per_scan)
 
 
+# Phase 12: the hash engines. sps_tpu's pin of 12a (scripts/export_torch_assets.py
+# --only hash); the f32 tolerance of every score comparison in 12a and 12b
+# (the CPU tests' against sps_tpu); the steps of 12a's fit and fixed batch;
+# 12b's scans; the int8 kernel's launches a scan on the brick engine (16 3^3
+# convs on five brick levels, block5_0.conv1's C = 192 in six launches of 32
+# channels: ops/brick.py INT8_CHUNK).
+HASH_PIN = os.path.join(HERE, "sps_torch", "assets", "hash_engines_pin.npz")
+HASH_RTOL, HASH_ATOL = 1e-3, 1e-4
+HASH_FIT_STEPS, HASH_FIXED_STEPS = 4, 6
+ENGINE_PARITY_SCANS = 3
+BRICK_INT8_LAUNCHES = 21
+
+
+def hash_world(meta, ns):
+    """The hash pin's world (phase 3's, sps_torch.data.synthetic): the map
+    and the scans padded to ns, with their valid masks and labels."""
+    from sps_torch.data import synthetic
+
+    stable = synthetic.make_world(**meta["world"])
+    rng = np.random.default_rng(meta["rng_seed"])
+    clutter = synthetic._boxes(rng, *meta["clutter"]).astype(np.float32)
+    scans = np.zeros((meta["scans"], ns, 3), np.float32)
+    valids = np.zeros((meta["scans"], ns), bool)
+    labels = np.zeros((meta["scans"], ns), np.float32)
+    for i in range(meta["scans"]):
+        pts, lab = synthetic.sample_scan(rng, stable, clutter, np.array([meta["step"] * i, 0.0]),
+                                         n_rays=meta["n_rays"])
+        k = min(len(pts), ns)
+        scans[i, :k], valids[i, :k], labels[i, :k] = pts[:k], True, lab[:k]
+    return stable, scans, valids, labels
+
+
+def equal(what, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else "shape"
+        raise AssertionError(f"{what}: not bit-equal ({bad} entries differ)")
+
+
+def hash_syncs(fn):
+    """fn()'s result and the host syncs the hash probe loops took in it."""
+    from sps_torch.ops import hash as vhash
+
+    vhash.reset_syncs()
+    out = fn()
+    return out, vhash.SYNCS["hash"]
+
+
+def phase_hash_small(card):
+    """12a: config/config_small.yaml as shipped (ENGINE gather, JOIN_MODE hash,
+    f32, TF32 off), MinkUNet14 at full width with phase 3's seeded weights on
+    phase 3's world: the first scan's voxelize table and point2voxel and the
+    hash join's mask on the card, on the CPU and in sps_tpu's pin, bit-equal;
+    assemble_batch card vs CPU; StreamingFilter card vs CPU and vs the pin;
+    then fit, predict_sequence, replay_sequence and run_localization on the
+    world written to disk, and a fixed batch whose loss must fall."""
+    import torch
+
+    from sps_torch import config, pipeline, train
+    from sps_torch import eval as ev
+    from sps_torch.convert import load_weights
+    from sps_torch.data import synthetic
+    from sps_torch.models import spsnet
+    from sps_torch.ops import radius as rad
+    from sps_torch.ops import voxelize as vox
+    from sps_torch.stream.engine import StreamingFilter
+    from sps_torch.stream.localize import run_localization
+    from sps_torch.stream.replay import replay_sequence
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("phase 12a: config_small.yaml as shipped (gather engine, hash join), f32, full width")
+    pin = np.load(HASH_PIN)
+    meta = json.loads(str(pin["meta"]))
+    cfg = config.load(os.path.join(HERE, meta["config"]))
+    if not (cfg.tpu.engine == "gather" and cfg.tpu.join_mode == "hash" and not cfg.tpu.bf16):
+        raise AssertionError("config_small.yaml is not the gather engine with the hash join")
+    scfg = cfg.sps_config(1)
+    stable, scans, valids, labels = hash_world(meta, cfg.tpu.scan_points)
+    sd = spsnet.init_state_dict(scfg, seed=meta["weights_seed"])
+    n, vcap = scans.shape[1], scfg.caps.voxels[0]
+
+    def first_scan(dev):
+        x = torch.as_tensor(scans[0], device=dev)
+        v = torch.as_tensor(valids[0], device=dev)
+        mp = torch.as_tensor(stable, device=dev)
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        grid, p2v, _ = vox.voxelize(vox.quantize(x, cfg.voxel_size), zeros, zeros + 1, v,
+                                    num_time=2, voxel_capacity=vcap)
+        mask, dropped = rad.radius_join(x, v, mp, torch.ones(len(stable), dtype=torch.bool,
+                                                              device=dev),
+                                        cfg.voxel_size, cell_capacity=cfg.tpu.cell_capacity,
+                                        max_per_cell=cfg.tpu.max_per_cell)
+        return {"voxel/keys": grid.table.keys, "voxel/rows": grid.table.rows,
+                "voxel/p2v": p2v, "voxel/num_voxels": grid.num_voxels, "join/mask": mask,
+                "join/dropped": dropped}
+
+    (on_card, syncs), on_cpu = hash_syncs(lambda: first_scan("cuda")), first_scan("cpu")
+    for key, want in on_card.items():
+        equal(f"12a {key} card vs sps_tpu's pin", want.cpu().numpy(), pin[key])
+        equal(f"12a {key} CPU vs sps_tpu's pin", on_cpu[key].numpy(), pin[key])
+    log(f"  first scan: {int(pin['voxel/num_voxels'])} voxels, table keys/rows and point2voxel "
+        f"bit-equal to the pin on the card and the CPU; the join keeps "
+        f"{int(pin['join/mask'].sum())} of {len(stable)} map points (dropped "
+        f"{int(pin['join/dropped'])}), bit-equal; {syncs} host syncs in the card's voxelize "
+        f"and join")
+
+    def assemble(dev):
+        t = [torch.as_tensor(a, device=dev) for a in (scans, labels, valids, stable)]
+        return pipeline.assemble_batch(*t, cfg)
+
+    (pb_g, aux_g), (pb_c, aux_c) = assemble("cuda"), assemble("cpu")
+    for name in ("xyz", "batch", "t", "label", "valid"):
+        equal(f"12a assemble_batch {name} card vs CPU", getattr(pb_g, name).cpu().numpy(),
+              getattr(pb_c, name).numpy())
+    for name in aux_c:
+        if int(aux_g[name]) != int(aux_c[name]):
+            raise AssertionError(f"12a assemble_batch {name}: card {int(aux_g[name])}, "
+                                 f"CPU {int(aux_c[name])}")
+    log(f"  assemble_batch (batch 2, hash join) bit-equal card vs CPU: submap_count "
+        f"{int(aux_g['submap_count'])}, cell_dropped {int(aux_g['cell_dropped'])}, "
+        f"submap_overflow {int(aux_g['submap_overflow'])}")
+
+    f_gpu = StreamingFilter(cfg, sd, stable)
+    f_cpu = StreamingFilter(cfg, sd, stable, device="cpu")
+    pose = np.eye(4, dtype=np.float32)
+    worst = 0.0
+    for i in range(len(scans)):
+        (out_g, syncs), out_c = (hash_syncs(lambda: f_gpu(scans[i], valids[i], labels[i], pose)),
+                                 f_cpu(scans[i], valids[i], labels[i], pose))
+        s_g = out_g[0].cpu()
+        torch.testing.assert_close(s_g, out_c[0], rtol=HASH_RTOL, atol=HASH_ATOL)
+        torch.testing.assert_close(s_g, torch.as_tensor(pin["scores"][i]), rtol=HASH_RTOL,
+                                   atol=HASH_ATOL)
+        for key in ("n_scan_voxels", "n_submap_voxels", "n_kept"):
+            if not int(out_g[2][key]) == int(out_c[2][key]) == int(pin[f"stats/{key}"][i]):
+                raise AssertionError(f"12a filter scan {i}: {key} card {int(out_g[2][key])}, "
+                                     f"CPU {int(out_c[2][key])}, pin {pin[f'stats/{key}'][i]}")
+        if bool(out_g[2]["overflow"]) or "topo_miss_points" in out_g[2]:
+            raise AssertionError(f"12a filter scan {i}: overflow, or the atlas engine's stats")
+        d = float((s_g - torch.as_tensor(pin["scores"][i])).abs().max())
+        worst = max(worst, d)
+        log(f"  filter scan {i}: max |score_card - score_cpu| "
+            f"{float((s_g - out_c[0]).abs().max()):.3e}, against sps_tpu's pin {d:.3e}; "
+            f"n_scan_voxels {int(out_g[2]['n_scan_voxels'])}, n_submap_voxels "
+            f"{int(out_g[2]['n_submap_voxels'])}; {syncs} host syncs")
+    del f_gpu, f_cpu
+
+    root = os.path.join(HERE, "build", "hash_small")
+    out_dir = os.path.join(HERE, "build", "hash_small_run")
+    for d in (root, out_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        synthetic.generate(root, scans_per_seq=3, seed=meta["world"]["seed"],
+                           extent=meta["world"]["extent"], n_rays=meta["n_rays"],
+                           ground_points=meta["world"]["ground_points"],
+                           n_stable=meta["world"]["n_stable"])
+        base = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, root=root))
+        kw = dict(log_dir=os.path.join(out_dir, "logs"), ckpt_dir=os.path.join(out_dir, "ckpt"))
+        run = fit_run(base, "12a fit", card, max_steps=HASH_FIT_STEPS, **kw)
+        if len(run["calls"]) != HASH_FIT_STEPS:
+            raise AssertionError(f"12a fit: {len(run['calls'])} steps")
+        means = ev.predict_sequence(base, load_weights(run["path"], base.sps_config(1)))
+        if not all(np.isfinite(means[k]) for k in ev.METRICS):
+            raise AssertionError(f"12a predict_sequence: {means}")
+        rs = replay_sequence(base, sd, "20220629", log=lambda *a: None)
+        loc = run_localization(base, sd, "20220629", "sps", prior="odom", log=lambda *a: None)
+        if not (len(rs.rows) == 3 and np.isfinite(loc["ate_rmse"]) and loc["ate_rmse"] < 0.5):
+            raise AssertionError(f"12a replay {len(rs.rows)} scans, localization ATE "
+                                 f"{loc['ate_rmse']}")
+        log(f"  predict_sequence from the fit's checkpoint: "
+            + ", ".join(f"{k} {means[k]:.4f}" for k in ev.METRICS)
+            + f"; replay_sequence {len(rs.rows)} scans; run_localization (sps, prior odom) ATE "
+            f"{loc['ate_rmse']:.4f} m")
+        cfg_f = dataclasses.replace(base, train=dataclasses.replace(base.train,
+                                                                    augmentation=False))
+        state = train.create_state(cfg_f, 0, steps_per_epoch=4, device="cuda")
+        batch = {"xyz": torch.as_tensor(scans, device="cuda"),
+                 "label": torch.as_tensor(labels, device="cuda"),
+                 "valid": torch.as_tensor(valids, device="cuda")}
+        mp = torch.as_tensor(stable, device="cuda")
+        losses = [float(train.train_step(state, batch, mp, cfg=cfg_f, augment=False)["loss"])
+                  for _ in range(HASH_FIXED_STEPS)]
+        log(f"  fixed batch, augmentation off, LR {cfg_f.train.lr}: losses "
+            f"{[round(x, 5) for x in losses]}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("12a: the loss does not fall on a fixed batch")
+        del state
+    finally:
+        for d in (root, out_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(pin_max_dscore=worst, fit_p50=run["p50"], losses=losses,
+                predict=means, ate=loc["ate_rmse"])
+
+
+def hash_run_checks(run, label):
+    """Phase 4's checks for a hash engine's run (no topology reuse)."""
+    for i, (s, st) in enumerate(zip(run["scores"], run["stats"])):
+        if bool(st["overflow"]):
+            raise AssertionError(f"{label} scan {i}: capacity overflow")
+        if not np.isfinite(s).all() or s.min() < 0 or s.max() > 1:
+            raise AssertionError(f"{label} scan {i}: scores not finite or outside [0, 1]")
+    return statistics.median(run["lat"])
+
+
+def gather_twin(cfg, data):
+    """The gather engine at cfg. Where the scans hold more voxels at a level
+    than config.yaml's VOXELS give a scan (the quarter-metre and coarser
+    levels of a BLT scan do), that level's capacity is raised to 1.25 times
+    the most voxels any scan has there, in steps of 1024, and logged."""
+    scans, valids, _ = data
+    g = twin(cfg, engine="gather")
+    have = g.sps_config(1).caps.voxels
+    need = [0] * len(have)
+    for x, v in zip(scans, valids):
+        c = np.floor(x[v] / cfg.voxel_size).astype(np.int64)
+        for li in range(len(have)):
+            need[li] = max(need[li], len(np.unique(c >> li, axis=0)))
+    caps = [max(h, -(-int(1.25 * n) // 1024) * 1024) for h, n in zip(have, need)]
+    if caps != list(have):
+        log(f"  gather engine: voxels a level in the scans {need}; capacities a scan raised "
+            f"from {list(have)} to {caps} (VOXELS {[2 * c for c in caps]} at BATCH_SIZE 2)")
+        g = twin(g, voxels=tuple(2 * c for c in caps))
+    return g
+
+
+def phase_engines_parity(card, shipped, sd, stable, data):
+    """12b: the gather engine, the brick engine (side 8, region) and the atlas
+    engine (halo) on phase 6's first scans, f32, TF32 off, the rebuild
+    program, seeded full-width weights: none overflows, and each hash
+    engine's scores are within rtol 1e-3 / atol 1e-4 of the atlas engine's
+    (tests/test_minkunet.py's cross-engine claim for sps_tpu)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("phase 12b: cross-engine parity at BLT scale (f32, rebuild program, full width)")
+    sub = tuple(a[:ENGINE_PARITY_SCANS] for a in data)
+    base = twin(shipped, int8=False, bf16=False, topo_every=0)
+    gather = gather_twin(base, data)
+    cfgs = {"atlas (halo)": base, "brick (side 8, region)": twin(base, engine="brick",
+                                                                  conv_mode="region"),
+            "gather": gather}
+    runs = {}
+    for name, cfg in cfgs.items():
+        (filt, run), syncs = hash_syncs(lambda: drive(cfg, sd, stable, sub))
+        p50 = hash_run_checks(run, f"12b {name}")
+        check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                             "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+                             "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, f"12b {name}")
+        log(f"  {name}: p50 {p50:.2f} ms (f32), {syncs / len(sub[0]):.1f} host syncs a scan, "
+            f"n_scan_voxels {[int(st['n_scan_voxels']) for st in run['stats']]}")
+        runs[name] = run
+        del filt
+        torch.cuda.empty_cache()
+    ref = runs["atlas (halo)"]
+    out = {"gather_voxels": list(gather.tpu.voxels)}
+    for name in ("brick (side 8, region)", "gather"):
+        worst = 0.0
+        for i, v in enumerate(sub[1]):
+            got, want = runs[name]["scores"][i], ref["scores"][i]
+            np.testing.assert_allclose(got, want, rtol=HASH_RTOL, atol=HASH_ATOL,
+                                       err_msg=f"12b {name} scan {i} vs the atlas engine")
+            worst = max(worst, float(np.abs(got - want)[v].max()))
+            for key in ("n_scan_voxels", "n_submap_voxels", "n_kept"):
+                if int(runs[name]["stats"][i][key]) != int(ref["stats"][i][key]):
+                    raise AssertionError(f"12b {name} scan {i}: {key} differs from the atlas's")
+        log(f"  {name} vs atlas (halo): max |dscore| {worst:.3e} over {len(sub[0])} scans")
+        out[name] = worst
+    return out
+
+
+def engine_profile(filt, data, card, label, n=4):
+    """torch.profiler over n scans of a hash engine: kernel ms and launches a
+    scan, device busy share, and the sps.hash.build / sps.hash.lookup ranges
+    (host ms, kernel ms and calls a scan)."""
+    scans, valids, labels = data
+    pose = np.eye(4, dtype=np.float32)
+    n = min(n, len(scans))
+    kernels, ranges, wall_us = profiled(lambda i: filt(scans[i], valids[i], labels[i], pose), n)
+    busy = sum(_device_us(e) for e in kernels)
+    out = dict(kernel_ms=busy / n / 1e3, launches=sum(e.count for e in kernels) / n,
+               busy=busy / wall_us, wall_ms=wall_us / n / 1e3)
+    for key in ("sps.hash.build", "sps.hash.lookup", "sps.model"):
+        r = ranges.get(key, dict(count=0, host_us=0.0, kernel_us=0.0, span_us=0.0))
+        out[key] = dict(calls=r["count"] / n, host_ms=r["host_us"] / n / 1e3,
+                        kernel_ms=r["kernel_us"] / n / 1e3, span_ms=r["span_us"] / n / 1e3)
+    log(f"  profile ({label}, {n} scans) [{card}]: kernels {out['kernel_ms']:.2f} ms and "
+        f"{out['launches']:.0f} launches a scan, device busy {100 * out['busy']:.1f}%, wall "
+        f"{out['wall_ms']:.2f} ms a scan; " + "; ".join(
+            f"{k} x{out[k]['calls']:.0f}: host {out[k]['host_ms']:.2f} ms, kernels "
+            f"{out[k]['kernel_ms']:.2f} ms, span {out[k]['span_ms']:.2f} ms"
+            for k in ("sps.hash.build", "sps.hash.lookup", "sps.model")) + " a scan")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        log(f"    kernel {_device_us(e) / n / 1e3:8.3f} ms a scan x{e.count // n:5d}  "
+            f"{e.key[:90]}")
+    return out
+
+
+def hash_rounds(filt, data):
+    """The probe loops' rounds in one scan, by kind: the build's two
+    full-width rounds, the narrow loops (compacted rows), and the
+    full-width cleanups (rows that compaction could not take). Returns
+    {kind: [loops, rounds, query-rounds]} (query-rounds: rounds times the
+    loop's width)."""
+    from sps_torch.ops import hash as vhash
+
+    real, out = vhash._rounds, {"full width, build's first two": [0, 0, 0],
+                                "narrow": [0, 0, 0], "full-width cleanup": [0, 0, 0]}
+
+    def counted(step, pending, max_rounds, first_test):
+        n = [0]
+
+        def one():
+            n[0] += 1
+            step()
+
+        real(one, pending, max_rounds, first_test)
+        kind = ("narrow" if first_test == vhash.SYNC_EVERY else "full-width cleanup"
+                if first_test == 0 else "full width, build's first two")
+        rec = out[kind]
+        rec[0], rec[1], rec[2] = rec[0] + 1, rec[1] + n[0], rec[2] + n[0] * pending().numel()
+
+    scans, valids, labels = data
+    vhash._rounds = counted
+    try:
+        filt(scans[0], valids[0], labels[0], np.eye(4, dtype=np.float32))
+    finally:
+        vhash._rounds = real
+    return out
+
+
+def int8_checked(filt, data):
+    """One scan of the brick engine with INT8 on, every int8 conv's inputs and
+    output recorded (ops/brick.py _int8_gather: one launch, or six for C =
+    192); each output against the plain version of the whole call, bit for
+    bit. Returns (calls, launches in the scan)."""
+    import torch
+
+    from sps_torch.ops import brick as bk
+    from sps_torch.ops import brick_conv_int8 as bi8
+
+    real, calls = bk._int8_gather, []
+
+    def recording(q, nbr27, w8, scale, out_dtype):
+        out = real(q, nbr27, w8, scale, out_dtype)
+        calls.append((q, nbr27, w8, scale, out_dtype, out))
+        return out
+
+    scans, valids, labels = data
+    bk._int8_gather = recording
+    try:
+        reset_counts()
+        filt(scans[0], valids[0], labels[0], np.eye(4, dtype=np.float32))
+        torch.cuda.synchronize()
+        launches = read_counts()["brick_conv_int8_gather"]
+    finally:
+        bk._int8_gather = real
+    shapes = []
+    for q, nbr27, w8, scale, out_dtype, out in calls:
+        want = bi8.brick_conv_int8_gather_ref(q, nbr27, w8, scale, out_dtype)
+        if not torch.equal(out, want):
+            raise AssertionError(f"12c brick int8 call C {q.shape[-1]} -> N {w8.shape[-1]} "
+                                 f"(B {nbr27.shape[1]}): not bit-equal to its plain version")
+        shapes.append((int(nbr27.shape[1]), int(q.shape[-1]), int(w8.shape[-1])))
+    return shapes, launches
+
+
+def phase_engines_times(card, shipped, sd, stable, data, gather_voxels):
+    """12c: bf16 at BLT scale, config.yaml with ENGINE gather (VOXELS as 12b
+    settled them), ENGINE brick with CONV_MODE region (INT8 off, then on):
+    p50 ms a scan over phase 6's ten scans, host syncs a scan, peak memory,
+    launch counts; a profile of four scans (kernel ms and launches a scan,
+    the hash build and lookup ranges); with INT8 on, every int8 conv of a
+    scan bit for bit against its plain version."""
+    import torch
+
+    log("phase 12c: the hash engines' times (config.yaml, bf16, BLT scale, full width)")
+    zero = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+            "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+            "brick_conv_int8": 0, "brick_conv_int8_gather": 0}
+    n_scans = len(data[0])
+    paths = {"gather": (twin(shipped, engine="gather", voxels=tuple(gather_voxels)), 0),
+             "brick region": (twin(shipped, engine="brick", conv_mode="region", int8=False), 0),
+             "brick region INT8": (twin(shipped, engine="brick", conv_mode="region", int8=True),
+                                   BRICK_INT8_LAUNCHES)}
+    out = {}
+    for name, (cfg, per_scan) in paths.items():
+        (filt, run), syncs = hash_syncs(lambda: drive(cfg, sd, stable, data))
+        p50 = hash_run_checks(run, f"12c {name}")
+        check_launches(run, dict(zero, brick_conv_int8_gather=per_scan * n_scans), f"12c {name}")
+        log(f"  {name} [{card}]: per-scan latency ms {[round(x, 2) for x in run['lat']]}; p50 "
+            f"{p50:.2f} ms; {syncs / n_scans:.1f} host syncs a scan; peak device memory "
+            f"{run['peak'] / 2**30:.2f} GiB")
+        prof = engine_profile(filt, data, card, f"12c {name}")
+        rounds = hash_rounds(filt, data)
+        log(f"  {name}: probe loops in one scan (loops, rounds, query-rounds): " + "; ".join(
+            f"{k} {v[0]}, {v[1]}, {v[2]:,}" for k, v in rounds.items()))
+        rec = dict(p50=p50, lat=run["lat"], syncs=syncs / n_scans, peak=run["peak"],
+                   launches=run["launches"], profile=prof, rounds=rounds, scores=run["scores"])
+        if per_scan:
+            shapes, launches = int8_checked(filt, data)
+            if launches != per_scan:
+                raise AssertionError(f"12c {name}: {launches} int8 launches in a scan, "
+                                     f"expected {per_scan}")
+            log(f"  {name}: {len(shapes)} int8 convs a scan ({launches} launches) bit-equal to "
+                f"their plain versions; (B, C, N): {shapes}")
+            rec["int8_calls"] = shapes
+        out[name] = rec
+        del filt
+        torch.cuda.empty_cache()
+    for name in ("brick region", "brick region INT8"):
+        d = max(float(np.abs(a - b)[v].max()) for a, b, v in
+                zip(out[name]["scores"], out["gather"]["scores"], data[1]))
+        log(f"  {name} vs gather (bf16): max |dscore| {d:.4e}")
+        out[name]["vs_gather"] = d
+    for rec in out.values():
+        del rec["scores"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2470,6 +2916,9 @@ def main() -> int:
         stem_z = phase_train_stem_zband(card, shipped, sd, stable, data, ship, fitted["root"])
     finally:
         shutil.rmtree(fitted["root"], ignore_errors=True)
+    hash_small = phase_hash_small(card)
+    parity = phase_engines_parity(card, shipped, sd, stable, data)
+    engines = phase_engines_times(card, shipped, sd, stable, data, parity["gather_voxels"])
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -2533,6 +2982,10 @@ def main() -> int:
         "halo_form_same_operands_ms": g["halo_form_ms"],
         "halo_conv3d_bf16_ms": g["halo_conv3d_bf16_ms"],
         "path_num_bricks": ship["num_bricks"],
+        "brick_engine": {"launches_a_scan": BRICK_INT8_LAUNCHES,
+                         "launches": engines["brick region INT8"]["launches"][
+                             "brick_conv_int8_gather"],
+                         "calls_bit_equal": engines["brick region INT8"]["int8_calls"]},
         "loop_launches": {k: r["launches"] for k, r in loop.items()},
         "offline_launches": {**{f"gate_{k}": r["launches"] for k, r in gate.items()},
                              "predict_blt": predict_blt["launches"],
@@ -2563,7 +3016,12 @@ def main() -> int:
         f"{fitted['profile']['launches']:.0f} launches a step; STEM_ZBAND train step p50 "
         f"{stem_z['fit']['p50']:.1f} ms, peak {stem_z['fit']['peak'] / 2**30:.2f} GiB; filter "
         f"kernels a scan {stem_z['kernels_ms_a_scan']['STEM_ZBAND']:.2f} (STEM_ZBAND) / "
-        f"{stem_z['kernels_ms_a_scan']['halo stem']:.2f} ms (halo stem)")
+        f"{stem_z['kernels_ms_a_scan']['halo stem']:.2f} ms (halo stem); hash engines: 12a "
+        f"scores within {hash_small['pin_max_dscore']:.2e} of sps_tpu's pin, 12b gather / brick "
+        f"within {parity['gather']:.2e} / {parity['brick (side 8, region)']:.2e} of atlas, 12c "
+        f"p50 " + ", ".join(f"{k} {v['p50']:.2f} ms ({v['syncs']:.0f} syncs, "
+                            f"{v['profile']['kernel_ms']:.2f} ms of kernels)"
+                            for k, v in engines.items()))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

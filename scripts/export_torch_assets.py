@@ -3,7 +3,7 @@
 its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
-        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines]
+        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines,hash]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -80,9 +80,22 @@ Writes, under sps_torch/assets/:
                                   MapMOS's logits (counter 0) and keep, LTS's
                                   window scores and kept points; chip_smoke.py
                                   phase 11 and tests/test_torch_{lts,
-                                  localize_baselines}.py read it.
+                                  localize_baselines}.py read it;
+  hash_engines_pin.npz            sps_tpu's gather engine and hash join on
+                                  chip_smoke.py phase 3's small world (seed 3,
+                                  two scans 0.2 m apart), config_small.yaml as
+                                  shipped (ENGINE gather, JOIN_MODE hash),
+                                  MinkUNet14 at full width with the port's
+                                  seeded weights (seed 1), f32: the first
+                                  scan's voxelize hash table (keys, rows) and
+                                  point2voxel, the radius join's mask over the
+                                  map and its dropped count for that scan, and
+                                  StreamingFilter's scores and integer stats
+                                  for both scans; `meta` holds the world and
+                                  configuration as JSON (hash_meta), from which
+                                  chip_smoke.py phase 12a rebuilds them.
 
-Runs on the CPU: ckpt, loop, train and baselines in a few minutes, loc ~14 min
+Runs on the CPU: ckpt, loop, train, baselines and hash in a few minutes, loc ~14 min
 (--scans 20), parity and predict several minutes each (bf16 on XLA:CPU is slow),
 loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU).
 """
@@ -629,14 +642,97 @@ def export_train_pin():
     np.savez_compressed(os.path.join(ASSETS, "train_step_pin.npz"), **flat)
 
 
+# chip_smoke.py phase 3's small world (sps_torch.data.synthetic), the scans
+# padded to config_small.yaml's SCAN_POINTS, and phase 3's weight seed.
+HASH_META = {"config": "config/config_small.yaml", "world": dict(seed=3, extent=10.0,
+             n_stable=10, ground_points=6000), "rng_seed": 3, "clutter": [3, 8.0],
+             "scans": 2, "step": 0.2, "n_rays": 400, "weights_seed": 1}
+
+
+def hash_inputs(meta):
+    """(map, scans (S, ns, 3), valids, labels) of the hash pin's world."""
+    from sps_torch import config as tcfg_mod
+    from sps_torch.data import synthetic as tsyn
+
+    ns = tcfg_mod.load(os.path.join(HERE, meta["config"])).tpu.scan_points
+    stable = tsyn.make_world(**meta["world"])
+    rng = np.random.default_rng(meta["rng_seed"])
+    clutter = tsyn._boxes(rng, *meta["clutter"]).astype(np.float32)
+    scans = np.zeros((meta["scans"], ns, 3), np.float32)
+    valids = np.zeros((meta["scans"], ns), bool)
+    labels = np.zeros((meta["scans"], ns), np.float32)
+    for i in range(meta["scans"]):
+        pts, lab = tsyn.sample_scan(rng, stable, clutter, np.array([meta["step"] * i, 0.0]),
+                                    n_rays=meta["n_rays"])
+        k = min(len(pts), ns)
+        scans[i, :k], valids[i, :k], labels[i, :k] = pts[:k], True, lab[:k]
+    return stable, scans, valids, labels
+
+
+def export_hash_pin():
+    import jax
+    import jax.numpy as jnp
+
+    from sps_torch import config as tcfg_mod
+    from sps_torch.models import spsnet as tsps
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu.ops import radius as jrad
+    from sps_tpu.ops import voxelize as jvox
+    from sps_tpu.stream.engine import StreamingFilter
+
+    meta = HASH_META
+    path = os.path.join(HERE, meta["config"])
+    cfg = jcfg_mod.load(path)
+    sd = tsps.init_state_dict(tcfg_mod.load(path).sps_config(1), seed=meta["weights_seed"])
+    stable, scans, valids, labels = hash_inputs(meta)
+    vcap = cfg.sps_config(1).caps.voxels[0]
+    n = scans.shape[1]
+    t = time.time()
+
+    @jax.jit
+    def first_scan(x, v, mp):
+        # The gather program's voxelize (the pose is the identity) and the
+        # join, both quantizing under jit as the filter does.
+        coords = jvox.quantize(x, cfg.voxel_size)
+        grid, p2v, _ = jvox.voxelize(coords, jnp.zeros(n, jnp.int32), jnp.ones(n, jnp.int32), v,
+                                     num_time=2, voxel_capacity=vcap)
+        mask, dropped = jrad.radius_join(x, v, mp, jnp.ones(mp.shape[0], bool), cfg.voxel_size,
+                                         cell_capacity=cfg.tpu.cell_capacity,
+                                         max_per_cell=cfg.tpu.max_per_cell)
+        return grid.table.keys, grid.table.rows, p2v, grid.num_voxels, mask, dropped
+
+    keys, rows, p2v, nvox, mask, dropped = first_scan(jnp.asarray(scans[0]),
+                                                      jnp.asarray(valids[0]), jnp.asarray(stable))
+    out = {"meta": np.asarray(json.dumps(meta)), "voxel/keys": np.asarray(keys),
+           "voxel/rows": np.asarray(rows), "voxel/p2v": np.asarray(p2v),
+           "voxel/num_voxels": np.int64(nvox), "join/mask": np.asarray(mask),
+           "join/dropped": np.int64(dropped)}
+    filt = StreamingFilter(cfg, jax.tree.map(np.asarray, flax_tree(sd)), stable)
+    pose = np.eye(4, dtype=np.float32)
+    scores, stats = [], {k: [] for k in ("n_scan_voxels", "n_submap_voxels", "n_kept")}
+    for i in range(meta["scans"]):
+        sc, _, st = filt(scans[i], valids[i], labels[i], pose)
+        if bool(st["overflow"]):
+            raise AssertionError(f"hash pin scan {i}: overflow")
+        scores.append(np.asarray(sc))
+        for k in stats:
+            stats[k].append(int(st[k]))
+    out["scores"] = np.stack(scores)
+    out.update({f"stats/{k}": np.asarray(v) for k, v in stats.items()})
+    np.savez_compressed(os.path.join(ASSETS, "hash_engines_pin.npz"), **out)
+    log(f"hash pin: {int(nvox)} voxels, join kept {int(np.asarray(mask).sum())} of "
+        f"{len(stable)} map points (dropped {int(dropped)}), stats {stats} "
+        f"({time.time() - t:.0f} s)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
     ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train,"
-                                      "baselines,loc_baselines",
+                                      "baselines,loc_baselines,hash",
                     help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
-                         "predict, train, baselines, loc_baselines")
+                         "predict, train, baselines, loc_baselines, hash")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -658,6 +754,8 @@ def main(argv=None):
         export_baselines()
     if "loc_baselines" in parts:
         export_loc_baselines_pin(args.scans)
+    if "hash" in parts:
+        export_hash_pin()
 
 
 if __name__ == "__main__":

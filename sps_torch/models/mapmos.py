@@ -4,8 +4,9 @@
 A MinkUNet14 (in=1, out=1, D=4) over the scan (time slot 1) and the local
 map (slot 0) with normalised time-index features
   f = 1 + (i_max - i) / (i_max - i_min)   (1 when all indices are equal),
-mean-pooled per voxel slot; per-point logits, label = logit > 0. The
-features are f32, so the network computes in f32.
+mean-pooled per voxel slot (under the atlas, brick or voxelize/gather
+engine); per-point logits, label = logit > 0. The features are f32, so
+the network computes in f32.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ import torch
 from torch import nn
 
 from sps_torch.models.minkunet import MinkUNet, MinkUNetConfig
-from sps_torch.models.spsnet import SPSConfig, build_levels_from_grid
-from sps_torch.ops import atlas as atl
+from sps_torch.models.spsnet import SPSConfig, build_levels_from_grid, voxelize_points
 from sps_torch.ops import voxelize as vox
 from sps_torch.structs import Capacities, PointBatch
 
@@ -61,18 +61,9 @@ class MapMOSNet(nn.Module):
         """pb.t: scan 1, map 0; indices: per-point scan index. Returns ((N,)
         logits, {"overflow": per-level flags})."""
         scfg = self.cfg.sps_config()
-        if scfg.engine == "brick":
-            raise NotImplementedError("the brick engine is not ported (ROADMAP, modules to "
-                                      "port: item 9, the brick/hash engine)")
-        if scfg.engine != "atlas":
-            raise NotImplementedError("the voxelize engine is not ported (ROADMAP, modules to "
-                                      "port: item 7, the gather engine)")
         feats = normalized_index_features(indices, pb.valid)
-        coords = vox.quantize(pb.xyz, scfg.voxel_size)
-        grid, p2s, pooled = atl.voxelize_bricks(
-            coords, pb.batch, pb.t, pb.valid, num_time=2,
-            brick_capacity=scfg.caps.bricks[0], brick_side=scfg.brick_side,
-            extent=scfg.atlas_extent, features=feats)
+        grid, p2s, pooled = voxelize_points(vox.quantize(pb.xyz, scfg.voxel_size), pb.batch,
+                                            pb.t, pb.valid, scfg, features=feats)
         levels, overflow = build_levels_from_grid(grid, scfg)
         out = self.MinkUNet(pooled, levels)
         logits = vox.devoxelize_flat(out, p2s, pb.t, num_time=2, channels=1)[:, 0].float()

@@ -15,12 +15,15 @@ inference-only, as in sps_tpu. With `remat` each BasicBlock runs under
 torch.utils.checkpoint in training (its activations recomputed in the
 backward, the running statistics left alone by the recomputation).
 
-Levels are a mixed pyramid: brick levels (ops.brick.BrickLevel) at L0-L2
-and aliased voxel-row levels (ops.atlas.RowLevel) at L3/L4. With
-conv_mode "zband" the first `zband_levels` brick levels run in the
-z-folded layout (B, bs, bs, bs*TC): the stride-1 convs there go through
-the zband_conv kernels, BasicBlocks through the fused kernel. Other brick
-levels use the dense halo conv ("halo", as under conv_mode "halo"), row
+Levels come from one of three engines: the atlas engine's mixed pyramid
+(brick levels, ops.brick.BrickLevel, at L0-L2 and aliased voxel-row
+levels, ops.atlas.RowLevel, at L3/L4), the brick engine's five brick
+levels, or the gather engine's five voxel-row levels (ops.topology.Level,
+one neighbour table per kernel size). With conv_mode "zband" the first
+`zband_levels` brick levels run in the z-folded layout (B, bs, bs,
+bs*TC): the stride-1 convs there go through the zband_conv kernels,
+BasicBlocks through the fused kernel. Other brick levels run the conv
+mode's dense brick conv ("region" or "halo"; "halo" under "zband"), row
 levels the row-gather conv. With int8 the 3^3 convs of unfolded brick
 levels run as int8 convs (the brick_conv_int8 kernel); with head_fold
 the 1x1 head runs on the z-folded layout. With stem_zband the k = 5 stem
@@ -56,10 +59,11 @@ class MinkUNetConfig:
     block_kernel: int = 3
     # Compute dtype for features and packed weights; parameters stay f32.
     dtype: torch.dtype = torch.float32
-    # Brick stride-1 conv formulation: "zband" folds levels [0, zband_levels)
-    # and runs the rest as "halo" (dense conv over the assembled halo).
-    # "region" (sps_tpu's default) is not ported: a 3^3 brick conv under it
-    # raises NotImplementedError; larger kernels run "halo", as in sps_tpu.
+    # Brick stride-1 conv formulation: "region" (a SAME conv within each
+    # brick plus one small conv per neighbour region), "halo" (a dense conv
+    # over the assembled halo), or "zband", which folds levels
+    # [0, zband_levels) and runs the rest as "halo". Kernels other than 3^3
+    # run "halo" under every mode, as in sps_tpu.
     conv_mode: str = "region"
     zband_levels: int = 1
     # Inference-only int8 math for the 3^3 convs of unfolded brick levels
@@ -200,15 +204,17 @@ class SpConv(nn.Module):
                 # the compute-dtype cast.
                 wd8 = bk.pack_dense_kernel(self.kernel, self.num_time)
                 return bk.brick_conv_int8(feats, lvl.nbr27, wd8, occ, mask_out=self.mask_out)
-            # Unfolded levels under "zband" use the halo assembly; sps_tpu
-            # runs kernels other than 3^3 as "halo" under every mode.
+            # Unfolded levels under "zband" use the halo assembly; kernels
+            # other than 3^3 run "halo" under every mode (bk.brick_conv).
             mode = "halo" if self.conv_mode == "zband" else self.conv_mode
-            if self.ksize == 3 and mode != "halo":
-                raise NotImplementedError(f"brick conv_mode {mode!r} is not ported")
-            return bk.brick_conv(feats, lvl.nbr27, wd, occ, mask_out=self.mask_out)
-        assert _is_row(lvl) and self.ksize == 3, "row levels carry 27-neighbour tables only"
+            return bk.brick_conv(feats, lvl.nbr27, wd, occ, mode, mask_out=self.mask_out)
         wp = sc.pack_time_toeplitz(w, self.num_time)
-        return sc.sparse_conv(feats, lvl.nbr27, wp, occ, mask_out=self.mask_out)
+        if _is_row(lvl):
+            assert self.ksize == 3, "row levels carry 27-neighbour tables only"
+            return sc.sparse_conv(feats, lvl.nbr27, wp, occ, mask_out=self.mask_out)
+        # A gather-engine level (ops.topology.Level): the neighbour table of
+        # this kernel size (the 5^3 stem gathers 125 rows a voxel).
+        return sc.sparse_conv(feats, lvl.nbr[self.ksize], wp, occ, mask_out=self.mask_out)
 
 
 class SpConvDown(nn.Module):

@@ -1,11 +1,15 @@
 """SPS stability-scoring model (counterpart of sps_tpu/models/spsnet.py).
 
-Points -> per-point stability in [0, 1]: voxelize into atlas bricks,
-build the topology pyramid, MinkUNet(in=1, out=1, D=4) on the constant
-0.5 input feature, devoxelize, sigmoid. Two entry modes: a PointBatch
-(the offline predict path: the model calls build_pyramid), or a prebuilt
-pyramid with levels/p2v (the streaming engine builds it outside the
-module).
+Points -> per-point stability in [0, 1]: voxelize, build the topology
+pyramid, MinkUNet(in=1, out=1, D=4) on the constant 0.5 input feature,
+devoxelize, sigmoid. The engine is static config, as in sps_tpu: "atlas"
+(bricks with the dense-AABB topology of ops/atlas.py), "brick" (bricks with
+the hash topology of ops/brick.py) or "gather" (voxel rows with the hash
+topology of ops/topology.py); the parameters are the same under every
+engine. Three entry modes: a PointBatch (the offline path: the model calls
+build_pyramid), a stride-1 grid with p2v (the gather and brick streaming
+programs), or a prebuilt pyramid with levels/p2v (the atlas streaming
+programs).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from torch import nn
 
 from sps_torch.models.minkunet import MaskedBatchNorm, MinkUNet, MinkUNetConfig
 from sps_torch.ops import atlas as atl
+from sps_torch.ops import brick as bk
+from sps_torch.ops import topology as topo
 from sps_torch.ops import voxelize as vox
 from sps_torch.structs import Capacities, PointBatch
 
@@ -30,9 +36,10 @@ class SPSConfig:
     threshold: float = 0.84
     caps: Capacities = Capacities()
     unet: MinkUNetConfig = MinkUNetConfig(in_channels=1, out_channels=1, num_time=2)
-    # The defaults are sps_tpu's. The port runs the "atlas" engine
-    # (dense-AABB brick topology) with brick_side 8 and row_from >= 3 only;
-    # build_levels_from_grid raises NotImplementedError on anything else.
+    # The defaults are sps_tpu's. "atlas", "brick" or "gather" (any other
+    # name is the gather engine, as in sps_tpu). The atlas engine runs with
+    # brick_side 8 and row_from >= 3 only (aliased row levels);
+    # build_levels_from_grid raises NotImplementedError on its other forms.
     engine: str = "brick"
     brick_side: int = 4
     # Static atlas window (NB, NX, NY, NZ) in bricks.
@@ -43,29 +50,55 @@ class SPSConfig:
     dist_cap: float = 1.0
 
 
-def build_levels_from_grid(grid: atl.AtlasGrid, cfg: SPSConfig):
-    """Topology pyramid from a stride-1 atlas grid: brick levels
-    [0, row_from) plus aliased row levels. Returns (levels, overflow)."""
-    if not (cfg.engine == "atlas" and cfg.row_from is not None and cfg.row_from >= 3
-            and cfg.brick_side == 8):
-        raise NotImplementedError(
-            "the port builds the atlas pyramid with aliased row levels "
-            "(engine atlas, brick_side 8, row_from >= 3) only"
-        )
-    levels = atl.build_levels(grid, num_levels=cfg.row_from, capacities=cfg.caps.bricks)
-    levels = atl.alias_row_levels(levels, NUM_LEVELS)
+def build_levels_from_grid(grid, cfg: SPSConfig):
+    """Topology pyramid from a stride-1 grid of any engine: an AtlasGrid
+    gives brick levels [0, row_from) plus aliased row levels, a BrickGrid
+    five brick levels, a VoxelGrid five voxel-row levels. Returns (levels,
+    overflow)."""
+    if isinstance(grid, atl.AtlasGrid):
+        if not (cfg.row_from is not None and cfg.row_from >= 3 and cfg.brick_side == 8):
+            raise NotImplementedError(
+                "the port builds the atlas pyramid with aliased row levels (brick_side 8, "
+                "row_from >= 3) only; sps_tpu's other atlas forms (all-brick, "
+                "atlas.hybridize_levels) are not ported")
+        levels = atl.build_levels(grid, num_levels=cfg.row_from, capacities=cfg.caps.bricks)
+        levels = atl.alias_row_levels(levels, NUM_LEVELS)
+    elif isinstance(grid, bk.BrickGrid):
+        levels = bk.build_brick_levels(grid, num_levels=NUM_LEVELS, capacities=cfg.caps.bricks)
+    else:
+        u = cfg.unet
+        ks = ((u.first_kernel, u.block_kernel),) + ((u.block_kernel,),) * (NUM_LEVELS - 1)
+        levels = topo.build_levels(grid, num_levels=NUM_LEVELS, capacities=cfg.caps.voxels,
+                                   kernel_sizes=ks)
     overflow = torch.stack([lv.grid.overflow for lv in levels])
     return levels, overflow
 
 
+def voxelize_points(coords, batch_idx, t_idx, valid, cfg: SPSConfig, features=None):
+    """The engine's stride-1 grid of (N, 3) voxel coords: (grid, point2slot)
+    plus the pooled features when `features` is given. point2slot indexes
+    the flat (rows, T, C) view of level 0 (rows = V for the gather engine,
+    B * bs^3 for the brick engines)."""
+    t, c = cfg.unet.num_time, cfg.caps
+    if cfg.engine == "atlas":
+        return atl.voxelize_bricks(coords, batch_idx, t_idx, valid, num_time=t,
+                                   brick_capacity=c.bricks[0], brick_side=cfg.brick_side,
+                                   extent=cfg.atlas_extent, features=features)
+    if cfg.engine == "brick":
+        return bk.voxelize_bricks(coords, batch_idx, t_idx, valid, num_time=t,
+                                  brick_capacity=c.bricks[0], brick_side=cfg.brick_side,
+                                  features=features)
+    grid, p2v, pooled = vox.voxelize(coords, batch_idx, t_idx, valid, num_time=t,
+                                     voxel_capacity=c.voxels[0], features=features)
+    if features is None:
+        return grid, p2v
+    return grid, p2v, pooled.reshape(pooled.shape[0], -1)
+
+
 def build_pyramid(pb: PointBatch, cfg: SPSConfig):
     """Voxelize a point batch and build the pyramid: (levels, point2slot, overflow)."""
-    coords = vox.quantize(pb.xyz, cfg.voxel_size)
-    grid, p2s = atl.voxelize_bricks(
-        coords, pb.batch, pb.t, pb.valid, num_time=cfg.unet.num_time,
-        brick_capacity=cfg.caps.bricks[0], brick_side=cfg.brick_side,
-        extent=cfg.atlas_extent,
-    )
+    grid, p2s = voxelize_points(vox.quantize(pb.xyz, cfg.voxel_size), pb.batch, pb.t,
+                                pb.valid, cfg)
     levels, overflow = build_levels_from_grid(grid, cfg)
     return levels, p2s, overflow
 
@@ -78,12 +111,14 @@ class SPSModel(nn.Module):
         self.cfg = cfg
         self.MinkUNet = MinkUNet(cfg.unet, generator)
 
-    def forward(self, pb: PointBatch | None = None, *, levels=None, p2v=None, t_idx=None,
-                valid=None, point_dist=None):
+    def forward(self, pb: PointBatch | None = None, *, grid=None, levels=None, p2v=None,
+                t_idx=None, valid=None, point_dist=None):
         """Returns (scores, aux): (N,) sigmoid stability scores (0 for padded
         points) and a dict with the per-level overflow flags. With `pb` the
         model voxelizes the batch itself (t_idx, valid and point_dist from
-        it); otherwise levels/p2v/t_idx/valid give a prebuilt pyramid.
+        it); with `grid` (a stride-1 grid whose occupancy already holds the
+        map bit) it builds the pyramid from it; otherwise levels give a
+        prebuilt pyramid; p2v/t_idx/valid go with grid and levels.
         point_dist: (N,) distance to the map per point (the dist_feature
         input; 0 when None)."""
         cfg = self.cfg
@@ -92,6 +127,8 @@ class SPSModel(nn.Module):
             t_idx, valid = pb.t, pb.valid
             if point_dist is None:
                 point_dist = pb.dist
+        elif grid is not None:
+            levels, overflow = build_levels_from_grid(grid, cfg)
         else:
             overflow = torch.stack([lv.grid.overflow for lv in levels])
         occ0 = levels[0].grid.occ

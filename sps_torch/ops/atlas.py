@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from sps_torch.ops import brick as bk
-from sps_torch.ops.voxelize import EMPTY, PAD_COORD
+from sps_torch.ops.voxelize import EMPTY, PAD_COORD, int_table
 
 
 @dataclasses.dataclass
@@ -43,18 +43,6 @@ class AtlasGrid:
 
 def _ncell(extent) -> int:
     return int(np.prod(extent))
-
-
-_TABLES: dict = {}
-
-
-def _int_table(rows, device) -> torch.Tensor:
-    """A static int32 table on `device`, uploaded once per device: a
-    host-to-device copy inside a scan would synchronise the stream."""
-    key = (tuple(map(tuple, rows)), str(device))
-    if key not in _TABLES:
-        _TABLES[key] = torch.as_tensor(np.asarray(rows), dtype=torch.int32, device=device)
-    return _TABLES[key]
 
 
 def _cells(batch_idx, bc, origin, extent):
@@ -226,7 +214,7 @@ def neighbor_table(grid: AtlasGrid, offsets) -> torch.Tensor:
     dev = grid.coords.device
     valid = torch.arange(bcap, device=dev) < grid.num_bricks
     batch = torch.where(valid, grid.coords[:, 0], -1)
-    offs = _int_table(offsets, dev)
+    offs = int_table(offsets, dev)
     q = (grid.coords[None, :, 1:] + offs[:, None, :]).reshape(-1, 3)
     b = batch[None, :].expand(k, bcap).reshape(-1)
     return atlas_rows(grid, b, q).reshape(k, bcap)
@@ -306,7 +294,7 @@ def alias_row_levels(levels: list, num_levels: int) -> list:
     assert levels[0].grid.occ.shape[1] == 8, "aliasing is a side-8 identity"
     out: list = list(levels)
     dev = levels[0].nbr27.device
-    octs = _int_table(bk.OCT_OFFSETS, dev)
+    octs = int_table(bk.OCT_OFFSETS, dev)
 
     for li in range(row_from, num_levels):
         k = li - 3

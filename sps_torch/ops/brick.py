@@ -2,7 +2,11 @@
 
 Voxels live in bs^3 bricks; a stride-1 sparse conv becomes a dense conv
 over halo-extended bricks assembled from the 26 neighbour bricks given by
-`nbr27`. Empty voxels inside occupied bricks are phantom slots, masked to
+`nbr27` ("halo"), or, for 3^3 kernels, a SAME conv within each brick plus
+one small conv per neighbour region ("region"). The brick engine's own
+topology (`voxelize_bricks`, `build_brick_levels`) dedups and looks up
+bricks through the hash table of ops/hash.py; the atlas engine
+(ops/atlas.py) builds the same BrickLevel tables without probing. Empty voxels inside occupied bricks are phantom slots, masked to
 exact zeros by the brick occupancy (B, bs, bs, bs, T). The z-band layout
 folds z into channels, (B, bs, bs, bs*TC), and runs the stride-1 conv as
 one 2-D conv (ops/zband_conv.py, a CUDA kernel on the card).
@@ -21,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from sps_torch.ops import brick_conv_int8 as bi8
+from sps_torch.ops import hash as vhash
+from sps_torch.ops import voxelize as vox
 from sps_torch.ops import zband_conv as zc
 from sps_torch.ops.sparse_conv import mask_slots, pack_time_toeplitz, take_rows
 
@@ -29,8 +35,18 @@ OCT_OFFSETS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
 OFFS27 = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)]
 
 
+class BrickGrid(NamedTuple):
+    """Brick grid of the brick engine, its lookup structure a hash table."""
+
+    coords: torch.Tensor  # (B, 4) int32 [batch, bx, by, bz]; PAD_COORD beyond num
+    occ: torch.Tensor  # (B, bs, bs, bs, T) float32
+    num_bricks: torch.Tensor  # () int32
+    table: vhash.HashTable  # brick coords -> compact row
+    overflow: torch.Tensor  # () bool
+
+
 class BrickLevel(NamedTuple):
-    grid: object  # atlas.AtlasGrid
+    grid: object  # BrickGrid or atlas.AtlasGrid
     nbr27: torch.Tensor  # (27, B) neighbour brick rows (OFFS27 order)
     parent: torch.Tensor | None  # (B,) coarse brick row
     oct: torch.Tensor | None  # (B, 3) octant (bcoords & 1) per axis
@@ -63,6 +79,136 @@ def coarse_occ_from_children(fine_occ: torch.Tensor, child: torch.Tensor) -> tor
     big = gather_children(fine_occ, child)
     bc = big.shape[0]
     return big.reshape(bc, bs, 2, bs, 2, bs, 2, t).amax(dim=(2, 4, 6))
+
+
+def voxelize_bricks(coords, batch_idx, t_idx, valid, *, num_time: int, brick_capacity: int,
+                    features=None, brick_side: int = 4):
+    """Dedup (N, 3) int32 voxel coords into bricks through the hash table.
+
+    Returns (grid, point2slot[, pooled]): point2slot the flat index
+    brick_row * bs^3 + local into the (B*bs^3,) slot view (EMPTY if
+    invalid); with `features` (N, C) also the (B, bs, bs, bs, T*C) per-slot
+    mean of the features (ME's UNWEIGHTED_AVERAGE)."""
+    bs = brick_side
+    assert bs & (bs - 1) == 0 and bs >= 2, "brick side must be a power of two"
+    shift = bs.bit_length() - 1
+    bvol = bs**3
+    n = coords.shape[0]
+    dev = coords.device
+    local = coords & (bs - 1)
+    key = torch.cat([batch_idx[:, None].to(torch.int32), (coords >> shift).to(torch.int32)], -1)
+    raw, slot_of = vhash.build(key, valid, vhash.next_pow2(max(2 * n, 16)))
+    row_of_slot, coords_c, table, num, overflow = vox.compact_slots(raw, brick_capacity)
+    p2b = vox.row_of_points(row_of_slot, slot_of, valid, brick_capacity)
+    lflat = (local[:, 0] * bs + local[:, 1]) * bs + local[:, 2]
+    point2slot = torch.where(p2b >= 0, p2b * bvol + lflat, vhash.EMPTY)
+
+    # Every point with a brick row is valid, so its slot is set to 1; all
+    # others land in the dump brick.
+    pb = torch.where(p2b >= 0, p2b, brick_capacity).long()
+    tcl = t_idx.clamp(0, num_time - 1).long()
+    slot = (pb * bvol + lflat.long()) * num_time + tcl
+    occ = torch.zeros((brick_capacity + 1) * bvol * num_time, dtype=torch.float32, device=dev)
+    occ.index_fill_(0, slot, 1.0)
+    nreal = brick_capacity * bvol * num_time
+    occ = occ[:nreal].reshape(brick_capacity, bs, bs, bs, num_time)
+    grid = BrickGrid(coords=coords_c, occ=occ, num_bricks=num, table=table, overflow=overflow)
+    if features is None:
+        return grid, point2slot
+    c = features.shape[-1]
+    w = valid.to(features.dtype)
+    nslot = (brick_capacity + 1) * bvol * num_time
+    cnt = torch.zeros(nslot, dtype=features.dtype, device=dev).index_add_(0, slot, w)
+    sums = torch.zeros((nslot, c), dtype=features.dtype, device=dev).index_add_(
+        0, slot, features * w[:, None])
+    pooled = sums[:nreal] / torch.clamp_min(cnt[:nreal], 1.0)[:, None]
+    return grid, point2slot, pooled.reshape(brick_capacity, bs, bs, bs, num_time * c)
+
+
+def invert_rows(rows: torch.Tensor, size: int) -> torch.Tensor:
+    """Invert injective row maps: out[..., j] = i where rows[..., i] == j
+    (EMPTY elsewhere). Mirror-offset neighbour tables follow from their
+    opposite offset's (j is i's neighbour at d iff i is j's at -d)."""
+    lead, n = rows.shape[:-1], rows.shape[-1]
+    src = torch.arange(n, dtype=torch.int32, device=rows.device).expand(lead + (n,))
+    dest = torch.where(rows >= 0, rows, size).long()
+    out = torch.full(lead + (size + 1,), vhash.EMPTY, dtype=torch.int32, device=rows.device)
+    return out.scatter_(-1, dest, src)[..., :size]
+
+
+def _brick_lookup(grid: BrickGrid, offsets) -> torch.Tensor:
+    """(K, B) neighbour brick rows for static brick-coordinate offsets: one
+    hash lookup of K * B queries."""
+    b = grid.coords.shape[0]
+    dev = grid.coords.device
+    offs = vox.int_table(offsets, dev)
+    k = offs.shape[0]
+    valid = torch.arange(b, device=dev) < grid.num_bricks
+    q = torch.cat([grid.coords[None, :, :1].expand(k, b, 1),
+                   grid.coords[None, :, 1:] + offs[:, None, :]], -1).reshape(k * b, 4)
+    qv = valid[None, :].expand(k, b).reshape(-1)
+    return vhash.lookup(grid.table, q, qv).reshape(k, b)
+
+
+def downsample_bricks(grid: BrickGrid, coarse_capacity: int) -> tuple[BrickGrid, torch.Tensor]:
+    """Coarse-level brick grid (the voxel stride doubles, so brick coords
+    halve) and fine2coarse. Rows past num_bricks are keyed PAD_COORD; the
+    coarse occupancy (zeros here) comes from the children."""
+    b = grid.coords.shape[0]
+    dev = grid.coords.device
+    valid = torch.arange(b, device=dev) < grid.num_bricks
+    ckey = torch.cat([grid.coords[:, :1], grid.coords[:, 1:] >> 1], -1)
+    ckey = torch.where(valid[:, None], ckey, vox.PAD_COORD)
+    raw, slot_of = vhash.build(ckey, valid, vhash.next_pow2(max(2 * b, 16)))
+    row_of_slot, coords_c, table, num, overflow = vox.compact_slots(raw, coarse_capacity)
+    f2c = vox.row_of_points(row_of_slot, slot_of, valid, coarse_capacity)
+    bs, t = grid.occ.shape[1], grid.occ.shape[-1]
+    cgrid = BrickGrid(coords=coords_c,
+                      occ=torch.zeros((coarse_capacity, bs, bs, bs, t), dtype=grid.occ.dtype,
+                                      device=dev),
+                      num_bricks=num, table=table, overflow=overflow)
+    return cgrid, f2c
+
+
+def build_brick_levels(grid0: BrickGrid, *, num_levels: int, capacities: tuple) -> list:
+    """Brick topology pyramid of the brick engine, finest first: 13 hash
+    lookups a level (the offsets before the centre), their mirrors by
+    inversion, the centre as the identity; child maps by scatter from the
+    downsample's assignment; coarse occupancy from the children."""
+    assert capacities[0] == grid0.coords.shape[0]
+    grids, f2c = [grid0], []
+    for li in range(num_levels - 1):
+        cg, m = downsample_bricks(grids[-1], capacities[li + 1])
+        f2c.append(m)
+        grids.append(cg)
+
+    levels = []
+    for li, g in enumerate(grids):
+        b = g.coords.shape[0]
+        dev = g.coords.device
+        half = _brick_lookup(g, OFFS27[:13])
+        centre = torch.where(torch.arange(b, device=dev) < g.num_bricks,
+                             torch.arange(b, dtype=torch.int32, device=dev), vhash.EMPTY)
+        nbr27 = torch.cat([half, centre[None], invert_rows(half, b).flip(0)])
+        last = li == num_levels - 1
+        child = None
+        if li > 0:
+            # Fine brick bf with octant o is the (o, f2c[bf]) child.
+            fine = grids[li - 1]
+            bf = fine.coords.shape[0]
+            validf = torch.arange(bf, device=dev) < fine.num_bricks
+            octf = fine.coords[:, 1:] & 1
+            kflat = octf[:, 0] * 4 + octf[:, 1] * 2 + octf[:, 2]
+            fc = f2c[li - 1]
+            dest = torch.where(validf & (fc >= 0), fc, b)
+            child = torch.full((8, b + 1), vhash.EMPTY, dtype=torch.int32, device=dev)
+            child[kflat.long(), dest.long()] = torch.arange(bf, dtype=torch.int32, device=dev)
+            child = child[:, :b]
+            g = g._replace(occ=coarse_occ_from_children(fine.occ, child))
+            grids[li] = g
+        levels.append(BrickLevel(grid=g, nbr27=nbr27, parent=None if last else f2c[li],
+                                 oct=None if last else g.coords[:, 1:] & 1, child=child))
+    return levels
 
 
 _HALO_MAPS: dict = {}
@@ -326,14 +472,48 @@ class _Conv3dValid(torch.autograd.Function):
         return dx, dw
 
 
-def brick_conv(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
-    """Stride-1 sparse conv as a dense VALID 3-D conv over the assembled halo
-    (the "halo" mode of sps_tpu's brick_conv).
+def _conv3d_same(x: torch.Tensor, w: torch.Tensor, padding) -> torch.Tensor:
+    """3-D cross-correlation in the JAX layouts (x NDHWC, w DHWIO) with
+    symmetric zero padding per axis."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), padding=padding)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
 
-    w_dense: (k, k, k, T*Cin, T*Cout) in x-slowest offset order."""
+
+def _region_spans(d: int, bs: int):
+    """Per axis for a neighbour at offset d: (source slice in the neighbour,
+    kernel taps, output slice, conv padding)."""
+    if d == -1:
+        return slice(bs - 1, bs), slice(0, 1), slice(0, 1), 0
+    if d == 0:
+        return slice(0, bs), slice(0, 3), slice(0, bs), 1
+    return slice(0, 1), slice(2, 3), slice(bs - 1, bs), 0
+
+
+def brick_conv(feats, nbr27, w_dense, occ, mode: str = "halo", *, mask_out: bool = True):
+    """Stride-1 sparse conv over bricks. w_dense: (k, k, k, T*Cin, T*Cout)
+    in x-slowest offset order.
+
+    mode "halo": a dense VALID 3-D conv over the assembled halo. mode
+    "region" (3^3 kernels): a SAME conv within each brick plus one small
+    conv per neighbour region (6 faces, 12 edges, 8 corners) of the
+    neighbour's boundary slab, each added into the output's boundary; no
+    halo tensor. Larger kernels always run "halo", as in sps_tpu. In bf16
+    the region sums are taken in f32 and cast once."""
     k = w_dense.shape[0]
-    h = halo(feats, nbr27, k // 2)
-    out = _conv3d_valid(h, w_dense).to(feats.dtype)
+    if k != 3 or mode == "halo":
+        h = halo(feats, nbr27, k // 2)
+        out = _conv3d_valid(h, w_dense).to(feats.dtype)
+        return mask_bricks(out, occ) if mask_out else out
+    bs = feats.shape[1]
+    out = _conv3d_same(feats, w_dense, 1).float()
+    for kk, (dx, dy, dz) in enumerate(OFFS27):
+        if (dx, dy, dz) == (0, 0, 0):
+            continue
+        (sx, kx, ox, px), (sy, ky, oy, py), (sz, kz, oz, pz) = (
+            _region_spans(d, bs) for d in (dx, dy, dz))
+        slab = take_rows(feats[:, sx, sy, sz], nbr27[kk])
+        out[:, ox, oy, oz] += _conv3d_same(slab, w_dense[kx, ky, kz], (px, py, pz))
+    out = out.to(feats.dtype)
     return mask_bricks(out, occ) if mask_out else out
 
 
@@ -374,8 +554,32 @@ def brick_conv_int8(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
     from its f32 values."""
     q, s_in = quantize_act(feats)
     w8, s_w = quantize_weight(w_dense)
-    out = bi8.brick_conv_int8_gather(q, nbr27, w8, s_in * s_w, feats.dtype)
+    out = _int8_gather(q, nbr27, w8, s_in * s_w, feats.dtype)
     return mask_bricks(out, occ) if mask_out else out
+
+
+# Input channels a launch when the int8 kernel does not take C whole (C >
+# its 128, as at the brick engine's L3: 192): each chunk's int32 sums are
+# below 27 * 32 * 127^2 < 2^24, so a chunk's f32 output at scale 1 is its
+# sums exactly.
+INT8_CHUNK = 32
+
+
+def _int8_gather(q, nbr27, w8, scale, out_dtype):
+    """The gather form of the int8 kernel; when it does not take C whole,
+    one launch per INT8_CHUNK input channels at scale 1 in f32, the exact
+    sums added in int32 and dequantized as the kernel does (f32(acc) *
+    scale): bit-equal to one launch's plain version."""
+    c = q.shape[-1]
+    if bi8.takes_gather(q.shape, nbr27.shape, w8.shape) or c % INT8_CHUNK:
+        return bi8.brick_conv_int8_gather(q, nbr27, w8, scale, out_dtype)
+    ones = torch.ones_like(scale)
+    acc = None
+    for c0 in range(0, c, INT8_CHUNK):
+        part = bi8.brick_conv_int8_gather(q[..., c0:c0 + INT8_CHUNK].contiguous(), nbr27,
+                                          w8[..., c0:c0 + INT8_CHUNK, :], ones, torch.float32)
+        acc = part.to(torch.int32) if acc is None else acc + part.to(torch.int32)
+    return (acc.float() * scale).to(out_dtype)
 
 
 def brick_conv_down(fine_feats, child, w_packed, occ_coarse, *, mask_out: bool = True):

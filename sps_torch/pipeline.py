@@ -1,7 +1,8 @@
 """Offline batch assembly: scan -> submap join -> one flat PointBatch
 (counterpart of sps_tpu/pipeline.py).
 
-Per sample: find the map points near the scan (the dense radius join),
+Per sample: find the map points near the scan (the radius join of
+JOIN_MODE: hash, the exact join, or dense),
 compact them into SUBMAP_POINTS slots, and stack [scan (t = 1, its labels) ;
 submap (t = 0, label 1)] into the flat padded PointBatch the model's
 PointBatch entry takes; in training, augment scan and submap jointly with
@@ -32,16 +33,20 @@ def assemble_batch(scan_xyz, scan_label, scan_valid, map_points, cfg: Config, rn
     uncapped beyond 1.0 as offline. rng (a torch.Generator; training)
     draws one augmentation matrix per sample, applied to its scan and
     submap after the distance feature."""
-    if cfg.tpu.join_mode != "dense":
-        rad.radius_join()
     bsz, ns, _ = scan_xyz.shape
     sub = cfg.tpu.submap_points
     dev = scan_xyz.device
     map_valid = torch.ones(map_points.shape[0], dtype=torch.bool, device=dev)
     sub_xyz, sub_valid, overflow, dropped = [], [], [], []
     for b in range(bsz):
-        mask, drop = rad.radius_join_dense(scan_xyz[b], scan_valid[b], map_points, map_valid,
-                                           cfg.voxel_size, extent=cfg.tpu.join_extent)
+        if cfg.tpu.join_mode == "dense":
+            mask, drop = rad.radius_join_dense(scan_xyz[b], scan_valid[b], map_points,
+                                               map_valid, cfg.voxel_size,
+                                               extent=cfg.tpu.join_extent)
+        else:
+            mask, drop = rad.radius_join(scan_xyz[b], scan_valid[b], map_points, map_valid,
+                                         cfg.voxel_size, cell_capacity=cfg.tpu.cell_capacity,
+                                         max_per_cell=cfg.tpu.max_per_cell)
         idx, sv, ovf = rad.compact_mask(mask, sub)
         sub_xyz.append(map_points[idx.long()] * sv[:, None].to(map_points.dtype))
         sub_valid.append(sv)

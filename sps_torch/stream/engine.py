@@ -1,19 +1,25 @@
-"""Streaming per-scan filter engine (counterpart of sps_tpu/stream/engine.py,
-atlas engine).
+"""Streaming per-scan filter engine (counterpart of sps_tpu/stream/engine.py).
 
-Per scan: pose the scan into the map frame; voxelize into atlas bricks
-with T=2 time slots; set the map-overlap bit with one gather into the
-resident map atlas; build (or refresh) the topology pyramid; MinkUNet
-stability scores devoxelized to points; loss/R2/dIoU stats against the
-labels; keep points with score <= eps.
+Per scan: pose the scan into the map frame; voxelize with T=2 time slots;
+set the map-overlap bit from the resident map; build (or refresh) the
+topology pyramid; MinkUNet stability scores devoxelized to points;
+loss/R2/dIoU stats against the labels; keep points with score <= eps.
 
-Topology reuse (TOPO_EVERY): every `topo_every`-th dispatch rebuilds the
-pyramid and caches it; the dispatches in between refresh the cached
-pyramid's occupancy instead. Points whose brick the cache does not cover
-score sigmoid(0) = 0.5 and are counted in stats["topo_miss_points"].
+The engine (cfg.tpu.engine) picks the resident map and the program:
+"atlas" a dense brick atlas of the map (one gather per scan brick), "brick"
+a hash-table brick grid of the map (one lookup per scan brick), "gather"
+(any other name) a hash table of the map's voxels (one lookup per scan
+voxel). Batches of more than one scan run on the atlas engine only.
+
+Topology reuse (TOPO_EVERY, atlas engine only): every `topo_every`-th
+dispatch rebuilds the pyramid and caches it; the dispatches in between
+refresh the cached pyramid's occupancy instead. Points whose brick the
+cache does not cover score sigmoid(0) = 0.5 and are counted in
+stats["topo_miss_points"].
 
 Everything per scan stays on the device: capacities are static, overflow
-is data, and no value is read back to the host. Profiler ranges
+is data. On the atlas engine no value is read back to the host; the hash
+engines' probe loops test for pending rows on the host (ops/hash.py). Profiler ranges
 ("sps.rebuild" / "sps.reuse", "sps.model", and per-stage ranges inside
 MinkUNet) label the work in a torch.profiler trace; without a profiler
 they cost a few microseconds per scan.
@@ -30,9 +36,22 @@ from sps_torch.config import Config
 from sps_torch.models.spsnet import SPSModel, build_levels_from_grid
 from sps_torch.ops import atlas as atl
 from sps_torch.ops import brick as bk
+from sps_torch.ops import hash as vhash
 from sps_torch.ops import voxelize as vox
 from sps_torch.structs import resolve_device
 from sps_torch.utils import metrics as met
+from sps_torch.utils.geometry import transform_points
+
+
+def _count(occ):
+    return occ.sum(dtype=torch.float32).to(torch.int32)
+
+
+def _map_points(map_points, device):
+    m = len(map_points)
+    pts = torch.as_tensor(np.asarray(map_points, np.float32), device=device)
+    zeros = torch.zeros(m, dtype=torch.int32, device=device)
+    return pts, zeros, torch.ones(m, dtype=torch.bool, device=device)
 
 
 def build_map_atlas(map_points: np.ndarray, voxel_size: float, brick_side: int,
@@ -47,36 +66,70 @@ def build_map_atlas(map_points: np.ndarray, voxel_size: float, brick_side: int,
     bc_min = np.floor(map_points.min(axis=0) / voxel_size).astype(np.int64) >> shift
     bc_max = np.floor(map_points.max(axis=0) / voxel_size).astype(np.int64) >> shift
     extent = (1,) + tuple(int(x) for x in (bc_max - bc_min + 2))
-    pts = torch.as_tensor(np.asarray(map_points, np.float32), device=dev)
-    zeros = torch.zeros(m, dtype=torch.int32, device=dev)
-    grid, _ = atl.voxelize_bricks(
-        vox.quantize(pts, voxel_size), zeros, zeros,
-        torch.ones(m, dtype=torch.bool, device=dev),
-        num_time=1, brick_capacity=capacity, brick_side=brick_side, extent=extent,
-    )
+    pts, zeros, ones = _map_points(map_points, dev)
+    grid, _ = atl.voxelize_bricks(vox.quantize(pts, voxel_size), zeros, zeros, ones, num_time=1,
+                                  brick_capacity=capacity, brick_side=brick_side, extent=extent)
+    return grid
+
+
+def build_map_table(map_points: np.ndarray, voxel_size: float, capacity: int | None = None,
+                    device=None):
+    """Resident map of the gather engine: the hash table of the map's
+    voxels, and their count (a device scalar)."""
+    dev = resolve_device(device)
+    if capacity is None:
+        capacity = vox.next_pow2(len(map_points))
+    pts, zeros, ones = _map_points(map_points, dev)
+    grid, _, _ = vox.voxelize(vox.quantize(pts, voxel_size), zeros, zeros, ones, num_time=1,
+                              voxel_capacity=capacity)
+    return grid.table, grid.num_voxels
+
+
+def build_map_bricks(map_points: np.ndarray, voxel_size: float, capacity: int | None = None,
+                     brick_side: int = 4, device=None) -> bk.BrickGrid:
+    """Resident map of the brick engine: a hash-table brick grid of the map
+    whose per-voxel occupancy answers the overlap query with one brick
+    lookup per scan brick."""
+    dev = resolve_device(device)
+    m = len(map_points)
+    if capacity is None:
+        # LiDAR maps are surface-like: occupied bricks scale ~ m / side^2.
+        capacity = vox.next_pow2(max(2 * m // (brick_side * brick_side), 1024))
+    pts, zeros, ones = _map_points(map_points, dev)
+    grid, _ = bk.voxelize_bricks(vox.quantize(pts, voxel_size), zeros, zeros, ones, num_time=1,
+                                 brick_capacity=capacity, brick_side=brick_side)
     return grid
 
 
 class StreamingFilter:
-    """Resident map + model; one call scores one scan (n, 3) or a batch
-    (NB, n, 3). Runs on the card unless device="cpu" is passed."""
+    """Resident map + model; one call scores one scan (n, 3) or, on the
+    atlas engine, a batch (NB, n, 3). Runs on the card unless device="cpu"
+    is passed."""
 
     def __init__(self, cfg: Config, state_dict: dict, map_points: np.ndarray,
                  batch: int = 1, device=None):
         self.device = resolve_device(device)
-        if cfg.tpu.engine != "atlas":
-            raise NotImplementedError("the port's streaming filter runs the atlas engine")
+        self.engine = cfg.tpu.engine
+        if self.engine != "atlas" and batch != 1:
+            raise ValueError("batches of more than one scan run on the atlas engine only")
         self.cfg = cfg
         self.sps_cfg = cfg.sps_config(batch_size=batch)
         self.model = SPSModel(self.sps_cfg)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
-        self.topo_every = cfg.tpu.topo_every
+        self.topo_every = cfg.tpu.topo_every if self.engine == "atlas" else 0
         self._topo_cache = None
         self._dispatch_i = 0
         map_points = np.asarray(map_points)[:, :3]
-        self.map_grid = build_map_atlas(map_points, cfg.voxel_size, cfg.tpu.brick_side,
-                                        device=self.device)
+        if self.engine == "atlas":
+            self.map_grid = build_map_atlas(map_points, cfg.voxel_size, cfg.tpu.brick_side,
+                                            device=self.device)
+        elif self.engine == "brick":
+            self.map_grid = build_map_bricks(map_points, cfg.voxel_size,
+                                             brick_side=cfg.tpu.brick_side, device=self.device)
+        else:
+            self.map_table, self.map_voxels = build_map_table(map_points, cfg.voxel_size,
+                                                              device=self.device)
         # Distance-to-map input feature: one registration LUT gather per point.
         self.map_vm = (reg.build_voxel_map(map_points, 4 * cfg.voxel_size, device=self.device)
                        if self.sps_cfg.dist_feature else None)
@@ -97,22 +150,76 @@ class StreamingFilter:
             pdist = reg.point_map_distance(self.map_vm, xyz, vflat, cap=self.sps_cfg.dist_cap)
         return vflat, coords, batch_idx, pdist
 
-    def _stats(self, scores, labels, vflat, keep, occ, overlap, overflow, miss):
+    def _stats(self, scores, labels, vflat, keep, n_scan, overlap, overflow, miss=None):
+        """The engine's stats: the atlas engine's also count topology misses."""
         labels = labels.reshape(-1)
-        return {
+        stats = {
             "loss": met.masked_mse(scores, labels, vflat),
             "r2": met.masked_r2(scores, labels, vflat),
             **met.classification_metrics(scores, labels, vflat, self.eps),
-            "n_scan_voxels": occ[..., 1].sum(dtype=torch.float32).to(torch.int32),
-            "n_submap_voxels": overlap.sum(dtype=torch.float32).to(torch.int32),
+            "n_scan_voxels": n_scan,
+            "n_submap_voxels": _count(overlap),
             "n_kept": keep.sum(dtype=torch.int32),
             "overflow": overflow,
-            "topo_miss_points": miss.sum(dtype=torch.int32),
         }
+        if miss is not None:
+            stats["topo_miss_points"] = miss.sum(dtype=torch.int32)
+        return stats
 
     def _rebuild(self, scan_xyz, valid, labels, poses):
-        """Full program: voxelize, overlap, build the pyramid, score. Also
-        returns the (levels, map-occupancy) cache for the reuse program."""
+        """Full program: voxelize, overlap, build the pyramid, score. Returns
+        (scores, keep, stats, cache): the atlas engine's (levels,
+        map-occupancy) cache for the reuse program, None on the hash
+        engines."""
+        if self.engine != "atlas":
+            return self._rebuild_hash(scan_xyz, valid, labels, poses) + (None,)
+        return self._rebuild_atlas(scan_xyz, valid, labels, poses)
+
+    def _rebuild_hash(self, scan_xyz, valid, labels, poses):
+        """The gather and brick engines' program for one scan (NB = 1): the
+        scan's grid through the hash table, the overlap bit from one map
+        lookup per scan voxel (gather) or brick (brick), the pyramid built
+        by the model from the grid."""
+        if scan_xyz.shape[0] != 1:
+            raise ValueError("batches of more than one scan run on the atlas engine only")
+        scfg = self.sps_cfg
+        x, v = scan_xyz[0], valid[0]
+        n = x.shape[0]
+        xyz = transform_points(x, poses[0])
+        pdist = None
+        if self.map_vm is not None:
+            pdist = reg.point_map_distance(self.map_vm, xyz, v, cap=scfg.dist_cap)
+        coords = vox.quantize(xyz, self.cfg.voxel_size)
+        zeros = torch.zeros(n, dtype=torch.int32, device=self.device)
+        ones = torch.ones(n, dtype=torch.int32, device=self.device)  # scan slot 1
+        if self.engine == "brick":
+            bcap = scfg.caps.bricks[0]
+            grid, p2v = bk.voxelize_bricks(coords, zeros, ones, v, num_time=2,
+                                           brick_capacity=bcap, brick_side=scfg.brick_side)
+            bvalid = torch.arange(bcap, device=self.device) < grid.num_bricks
+            mrow = vhash.lookup(self.map_grid.table, grid.coords, bvalid)
+            scan_occ = grid.occ[..., 1]
+            overlap = scan_occ * bk.take_rows(self.map_grid.occ, mrow)[..., 0]
+            n_scan = _count(scan_occ)
+        else:
+            vcap = scfg.caps.voxels[0]
+            grid, p2v, _ = vox.voxelize(coords, zeros, ones, v, num_time=2,
+                                        voxel_capacity=vcap)
+            rows_valid = torch.arange(vcap, device=self.device) < grid.num_voxels
+            hit = vhash.lookup(self.map_table, grid.coords, rows_valid) >= 0
+            overlap = (hit & rows_valid).to(grid.occ.dtype)
+            scan_occ = grid.occ[:, 1]
+            n_scan = grid.num_voxels
+        grid = grid._replace(occ=torch.stack([overlap, scan_occ], dim=-1))
+        with record_function("sps.model"):
+            scores, aux = self.model(grid=grid, p2v=p2v, t_idx=ones, valid=v, point_dist=pdist)
+        keep = (scores <= self.eps) & v
+        stats = self._stats(scores, labels, v, keep, n_scan, overlap, aux["overflow"].any())
+        return scores[None], keep[None], stats
+
+    def _rebuild_atlas(self, scan_xyz, valid, labels, poses):
+        """The atlas engine's full program; also returns the (levels,
+        map-occupancy) cache for the reuse program."""
         scfg = self.sps_cfg
         bcap = scfg.caps.bricks[0]
         nb, n = scan_xyz.shape[:2]
@@ -135,7 +242,7 @@ class StreamingFilter:
             scores, aux = self.model(levels=levels, p2v=p2s, t_idx=ones, valid=vflat,
                                      point_dist=pdist)
         keep = (scores <= self.eps) & vflat
-        stats = self._stats(scores, labels, vflat, keep, occ, overlap,
+        stats = self._stats(scores, labels, vflat, keep, _count(occ[..., 1]), overlap,
                             aux["overflow"].any() | lvl_overflow.any(),
                             torch.zeros_like(vflat))
         return scores.reshape(nb, n), keep.reshape(nb, n), stats, (levels, mocc)
@@ -170,7 +277,7 @@ class StreamingFilter:
             scores, aux = self.model(levels=levels2, p2v=point2slot, t_idx=ones, valid=vflat,
                                      point_dist=pdist)
         keep = (scores <= self.eps) & vflat
-        stats = self._stats(scores, labels, vflat, keep, occ, overlap,
+        stats = self._stats(scores, labels, vflat, keep, _count(occ[..., 1]), overlap,
                             aux["overflow"].any(), miss)
         return scores.reshape(nb, n), keep.reshape(nb, n), stats
 

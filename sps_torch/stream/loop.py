@@ -133,7 +133,9 @@ class LocalizationLoop:
             "reg_rmse": rstats["rmse"],
             "n_kept": fstats["n_kept"],
             "overflow": fstats["overflow"],
-            "topo_miss_points": fstats["topo_miss_points"],
+            # The hash engines rebuild every scan and count no misses.
+            "topo_miss_points": fstats.get("topo_miss_points",
+                                           torch.zeros((), dtype=torch.int32, device=dev)),
         }
         return pose, keep, stats
 

@@ -1,20 +1,22 @@
 """The port's model configs default as sps_tpu's do: every field that
 sps_torch's SPSConfig, MinkUNetConfig and Capacities share with sps_tpu's
-has sps_tpu's default (a dtype compared by name). Defaults the port cannot
-run raise NotImplementedError where they take effect
-(tests/test_torch_model.py::test_unported_options_raise,
-test_default_engine_raises below)."""
+has sps_tpu's default (a dtype compared by name), and the default engine
+(brick, conv_mode region) scores as sps_tpu's."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_stream import _flax_tree
 
 from sps_tpu.models.minkunet import MinkUNetConfig as JUNetConfig
 from sps_tpu.models.spsnet import SPSConfig as JSPSConfig
+from sps_tpu.models.spsnet import SPSModel as JSPSModel
 from sps_tpu.structs import Capacities as JCaps
+from sps_tpu.structs import pad_point_batch as jpad
 from sps_torch.models import spsnet as tsps
 from sps_torch.models.minkunet import MinkUNetConfig as TUNetConfig
 from sps_torch.structs import Capacities as TCaps
@@ -47,12 +49,29 @@ def test_defaults_equal_sps_tpu(port, ref):
     assert mine == _shared(mine, _norm(ref()))
 
 
-def test_default_engine_raises():
-    """The default engine ("brick", brick side 4, no row levels) is not
-    ported: building its pyramid raises instead of taking the atlas path."""
-    cfg = tsps.SPSConfig()
+def test_default_engine_scores_as_sps_tpu():
+    """The default engine ("brick", brick side 4, conv_mode "region", no row
+    levels) builds its hash pyramid and scores as sps_tpu's default config
+    does on the same weights; only the capacities and the widths are cut
+    (f32, rtol 1e-3 / atol 1e-4)."""
+    caps = dict(points=128, voxels=(256, 128, 64, 64, 64), bricks=(128, 64, 64, 64, 64))
+    narrow = dict(init_dim=4, planes=(4, 8, 8, 8, 8, 8, 8, 4))
+    cfg = dataclasses.replace(tsps.SPSConfig(), caps=TCaps(**caps),
+                              unet=dataclasses.replace(TUNetConfig(), **narrow))
+    jcfg = dataclasses.replace(JSPSConfig(), caps=JCaps(**caps),
+                               unet=dataclasses.replace(JUNetConfig(), **narrow))
+    assert (cfg.engine, cfg.brick_side, cfg.unet.conv_mode) == ("brick", 4, "region")
     rng = np.random.default_rng(0)
-    pb = tpad(rng.uniform(-3, 3, (64, 3)).astype(np.float32), np.zeros(64, np.int32),
-              np.zeros(64, np.int32), np.zeros(64, np.float32), 128, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsps.build_pyramid(pb, dataclasses.replace(cfg, atlas_extent=(1, 4, 4, 4)))
+    args = (rng.uniform(-3, 3, (64, 3)).astype(np.float32), np.zeros(64, np.int32),
+            rng.integers(0, 2, 64).astype(np.int32), np.zeros(64, np.float32), 128)
+    sd = tsps.init_state_dict(cfg, seed=0)
+    model = tsps.SPSModel(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.eval()
+    with torch.inference_mode():
+        got, aux = model(tpad(*args, device="cpu"))
+    want, aux_j = jax.jit(lambda v, b: JSPSModel(jcfg).apply(v, b))(
+        jax.tree.map(np.asarray, _flax_tree(sd)), jpad(*args))
+    assert not bool(aux["overflow"].any()) and not bool(np.asarray(aux_j["overflow"]).any())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-4)
+    assert bool((got[:64] > 0).all())

@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
               "convert", "stream.engine", "pipeline", "eval", "ops.radius", "data.prefetch",
               "stream.replay", "scripts.predict", "train", "ops.augment", "utils.checkpoint",
               "scripts.train", "data.range_image", "models.lts", "models.mos4d",
-              "models.mapmos", "stream.baselines"):
+              "models.mapmos", "stream.baselines", "ops.hash", "ops.topology"):
         assert f"sps_torch.{m}" in mods, m
 
 
@@ -79,26 +79,35 @@ def test_streaming_filter_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("entry", ["build_voxel_map", "LocalizationLoop", "run_localization",
-                                   "run_localization_mos4d", "MaskFilter", "LTSFilter"])
+                                   "run_localization_mos4d", "MaskFilter", "LTSFilter",
+                                   "build_map_table", "build_map_bricks",
+                                   "StreamingFilter_gather"])
 def test_new_entry_points_default_to_the_card(entry):
-    """The registration map, the loop, run_localization (a baseline's too)
-    and the baseline filters run on the card unless device="cpu" is passed."""
+    """The registration map, the loop, run_localization (a baseline's too),
+    the baseline filters, the hash engines' resident maps and the filter on
+    config_small.yaml as shipped (the gather engine) run on the card unless
+    device="cpu" is passed."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     from sps_torch import config, register
     from sps_torch.models import lts
     from sps_torch.stream import baselines
+    from sps_torch.stream import engine
     from sps_torch.stream.localize import run_localization
     from sps_torch.stream.loop import LocalizationLoop
 
     cfg = config.load(os.path.join(_ROOT, "config", "config.yaml"))
+    small = config.load(os.path.join(_ROOT, "config", "config_small.yaml"))
     pts = np.zeros((10, 3), np.float32)
     call = {"build_voxel_map": lambda: register.build_voxel_map(pts, 0.4),
             "LocalizationLoop": lambda: LocalizationLoop(cfg, {}, pts),
             "run_localization": lambda: run_localization(cfg, {}, "20220629", "raw"),
             "run_localization_mos4d": lambda: run_localization(cfg, {}, "20220629", "mos4d"),
             "MaskFilter": lambda: baselines.MaskFilter(pts, 0.1),
-            "LTSFilter": lambda: baselines.LTSFilter(lts.init_state_dict())}[entry]
+            "LTSFilter": lambda: baselines.LTSFilter(lts.init_state_dict()),
+            "build_map_table": lambda: engine.build_map_table(pts, 0.1),
+            "build_map_bricks": lambda: engine.build_map_bricks(pts, 0.1),
+            "StreamingFilter_gather": lambda: engine.StreamingFilter(small, {}, pts)}[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
 
