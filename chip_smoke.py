@@ -170,6 +170,35 @@ Phases, each of which raises (and exits non-zero) on failure:
               ranges), the probe loops' rounds in one scan by kind, and with
               INT8 on every int8 conv of a scan bit for bit against its plain
               version.
+  13. zband levels and atlas forms - (13a) phase 4's path at
+              ZBAND_LEVELS 2 and 3 (6 / 10 fused convs a scan on wgmma, the
+              stem on wgmma_k5), scores within 0.05 of phase 4's, kernel ms
+              and launches a scan with --profile; K2 at the seven L1 / L2
+              shapes those levels fold (B 3072 / 1024, N 128-512), its
+              launches at each shape in the ZBAND_LEVELS 3 run counted and
+              held to the table, against its plain version and timed beside
+              F.conv2d with its bound (band zeros counted, and without); (13b)
+              the all-brick pyramid (ROW_FROM 0) and the hybrid form (ROW_FROM
+              2 at side 8, VOXELS raised where a scan needs more rows) at
+              config.yaml in f32 on phase 6's first 3 scans, from each scan's
+              grid built on the CPU: tables card = CPU, scores within 1e-5 of
+              the CPU's and 1e-4 of the aliased pyramid's, no overflow; then
+              each form's StreamingFilter on the card (its own voxelization
+              and rebuild, TOPO_EVERY 0) within 1e-4 of the aliased filter's,
+              no overflow.
+  14. sp / dp - (14a) one rank on NCCL: the sp filter at config.yaml
+              bit-equal to the filter without a group, the dp step against
+              the step without a group (no further apart than two runs of
+              it); (14b) two ranks spawned on the one card over gloo (NCCL
+              refuses two ranks on one card; collectives staged through the
+              host, counted): the sp filter at config.yaml as shipped (INT8)
+              at ghost_frac 0 and 0.5, its INT8-off twin in f32 with ghosts,
+              and the zband path, each rank against the one-rank filter
+              (int8 tolerance / 0.1 / 1e-5 / 0.05), 10 int8 gather launches a
+              scan a rank, no overflow, p50 a rank; (14c) a dp-2 training
+              step at config.yaml (bf16, one scan a rank) on two ranks on the
+              card: parameters bit-equal across the ranks, finite losses,
+              step ms and peak memory a rank.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -829,10 +858,11 @@ def read_counts():
 def drive(cfg, sd, stable, data):
     """The filter over the scans with every launch count set to 0 just
     before and read just after. Returns the filter and the run: per-scan
-    latencies, scores/keep as numpy, stats as numbers, launches, peak
-    device memory."""
+    latencies, scores/keep as numpy, stats as numbers, launches (and the
+    z-band kernels' launches per shape), peak device memory."""
     import torch
 
+    from sps_torch.ops import zband_conv as zc
     from sps_torch.stream.engine import StreamingFilter
 
     scans, valids, labels = data
@@ -849,12 +879,13 @@ def drive(cfg, sd, stable, data):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     launches = read_counts()
+    shape_launches = dict(zc.SHAPE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     scores = [r[0].float().cpu().numpy() for r in results]
     keep = [r[1].cpu().numpy() for r in results]
     stats = [{k: float(v) for k, v in r[2].items()} for r in results]
     return filt, dict(lat=lat, scores=scores, keep=keep, stats=stats, launches=launches,
-                      peak=peak)
+                      shape_launches=shape_launches, peak=peak)
 
 
 def check_run(run, valids, topo_every, card, label):
@@ -2359,17 +2390,22 @@ def stem_times(filt, sd, card):
 
 
 def filter_kernel_ms(filt, data, card, label, n=8):
-    """Kernel time a scan of the filter over n scans (profiler; after a
-    warm-up scan, from a fresh rebuild)."""
+    """Kernel time and launches a scan of the filter over n scans, those of
+    the z-band kernels apart (profiler; after a warm-up scan, from a fresh
+    rebuild): {kernel_ms, launches, zband_kernel_ms}."""
     scans, valids, labels = data
     pose = np.eye(4, dtype=np.float32)
     filt(scans[0], valids[0], labels[0], pose)
     filt.invalidate()
     kernels, _, _ = profiled(lambda i: filt(scans[i], valids[i], labels[i], pose), n)
-    ms = sum(_device_us(e) for e in kernels) / n / 1e3
-    log(f"  {label} filter: kernels {ms:.2f} ms a scan, "
-        f"{sum(e.count for e in kernels) / n:.0f} launches a scan ({n} scans) [{card}]")
-    return ms
+    zband = [e for e in kernels if "zband" in e.key]
+    out = dict(kernel_ms=sum(_device_us(e) for e in kernels) / n / 1e3,
+               launches=sum(e.count for e in kernels) / n,
+               zband_kernel_ms=sum(_device_us(e) for e in zband) / n / 1e3)
+    log(f"  {label} filter: kernels {out['kernel_ms']:.2f} ms a scan, {out['launches']:.0f} "
+        f"launches a scan; z-band kernels {out['zband_kernel_ms']:.3f} ms, "
+        f"{sum(e.count for e in zband) / n:.0f} launches a scan ({n} scans) [{card}]")
+    return out
 
 
 def phase_train_stem_zband(card, shipped, sd, stable, data, ship_run, root):
@@ -2408,11 +2444,11 @@ def phase_train_stem_zband(card, shipped, sd, stable, data, ship_run, root):
     frun["vs_halo_stem"] = compare_runs(frun, ship_run, data[1], shipped.threshold, 0.05,
                                         "STEM_ZBAND filter vs the halo stem (phase 6)")
     stem = stem_times(filt, sd, card)
-    per_scan = {"STEM_ZBAND": filter_kernel_ms(filt, data, card, "STEM_ZBAND")}
+    per_scan = {"STEM_ZBAND": filter_kernel_ms(filt, data, card, "STEM_ZBAND")["kernel_ms"]}
     del filt
     torch.cuda.empty_cache()
     filt = StreamingFilter(shipped, sd, stable)
-    per_scan["halo stem"] = filter_kernel_ms(filt, data, card, "halo stem")
+    per_scan["halo stem"] = filter_kernel_ms(filt, data, card, "halo stem")["kernel_ms"]
     del filt
     torch.cuda.empty_cache()
     return dict(fit=run, filter=dict(p50=frun["p50"], peak=frun["peak"],
@@ -2843,6 +2879,515 @@ def phase_engines_times(card, shipped, sd, stable, data, gather_voxels):
     return out
 
 
+# Phase 13a: the zband path with ZBAND_LEVELS 2 and 3. Fused convs a scan
+# (the BasicBlock convs of the folded levels), by ZBAND_LEVELS.
+ZBAND_LEVEL_FUSED = {1: 2, 2: 6, 3: 10}
+# The BasicBlock convs that ZBAND_LEVELS 2 / 3 fold at L1 / L2, full width,
+# batch 1: (call, level, calls a scan at ZBAND_LEVELS 3, TCin, TCout,
+# residual); B is the level's brick capacity. K2's kernel is "wgmma" at each.
+# 13a counts the launches at each shape in its ZBAND_LEVELS 3 run and holds
+# them to this table.
+ZBAND_L12_CALLS = [
+    ("block1_0.conv1/conv2", 1, 2, 16, 16, True), ("block7_0.conv1", 1, 1, 48, 32, False),
+    ("block7_0.conv2", 1, 1, 32, 32, True), ("block2_0.conv1", 2, 1, 16, 32, False),
+    ("block2_0.conv2", 2, 1, 32, 32, True), ("block6_0.conv1", 2, 1, 96, 64, False),
+    ("block6_0.conv2", 2, 1, 64, 64, True),
+]
+
+
+def zband_l12_calls(card, caps, shape_launches, n_scans):
+    """K2 at the L1 / L2 shapes against its plain version (bf16, max error
+    within 2e-2 of the output's max-abs) and timed beside the plain version
+    and F.conv2d on the same operands, with the bound (band zeros counted,
+    and the 3^3 conv's own work beside it). shape_launches: the ZBAND_LEVELS
+    3 run's launches per shape over n_scans scans; each shape's count must
+    be ZBAND_L12_CALLS's, and the rest (L0's two a scan) ZBAND_LEVEL_FUSED[1]'s."""
+    import torch
+    import torch.nn.functional as F
+
+    fused = {key: n for key, n in shape_launches.items() if key[0] == "zband_conv_fused"}
+    log(f"  zband_conv_fused launches by shape over {n_scans} scans at ZBAND_LEVELS 3: "
+        + ", ".join(f"{key[1]} hz{key[2]} wz{key[3]}: {n}" for key, n in fused.items()))
+    calls = []
+    for i, (call, level, per_scan, tcin, tcout, wres) in enumerate(ZBAND_L12_CALLS):
+        c = make_case(3, 8, tcin, tcout, caps[level], torch.bfloat16, seed=200 + i,
+                      with_res=wres)
+        key = ("zband_conv_fused", "wgmma", tuple(c["hz"].shape), tuple(c["wz"].shape))
+        launches = fused.pop(key, 0)
+        if launches != per_scan * n_scans:
+            raise AssertionError(f"13a L{level} {call}: {launches} launches at {key[2:]} over "
+                                 f"{n_scans} scans, expected {per_scan} a scan")
+        tag = f"L{level} {call} hz{tuple(c['hz'].shape)} N={c['wz'].shape[-1]} bfloat16"
+        err = check("zband_conv_fused", c, True, tag, "wgmma")
+        x_nchw = c["hz"].permute(0, 3, 1, 2)
+        w_oihw = c["wz"].permute(3, 2, 0, 1)
+        ms = time_ms(lambda: run_kernel("zband_conv_fused", c))
+        plain_ms = time_ms(lambda: run_plain("zband_conv_fused", c))
+        library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
+        flops, nbytes = work(c, True)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
+        # The 3^3 conv the band encodes, without the band's zeros: 27 taps of
+        # TCin x TCout a voxel, bs^3 voxels a brick.
+        conv_flops = 2 * c["hz"].shape[0] * 8**3 * 27 * tcin * tcout
+        conv_bound_ms = max(conv_flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        calls.append(dict(name="zband_conv_fused", call=f"L{level} {call}", route="wgmma",
+                          source=route_source("wgmma"), launches_zband_levels_3=launches,
+                          launches_a_scan_zband_levels_3=launches / n_scans,
+                          hz=list(c["hz"].shape), wz=list(c["wz"].shape), max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, gflop=flops / 1e9, gbytes=nbytes / 1e9,
+                          conv_gflop=conv_flops / 1e9, conv_bound_ms=conv_bound_ms))
+        log(f"  time zband_conv_fused L{level} {call:21s} bf16 [{card}]: kernel (wgmma) "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, F.conv2d "
+            f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e9:.3f} GB); the conv without band zeros {conv_flops / 1e9:.1f} GFLOP, "
+            f"bound {conv_bound_ms:.3f} ms; {launches} launches in 13a's ZBAND_LEVELS 3 run")
+        del c, x_nchw, w_oihw
+        torch.cuda.empty_cache()
+    l0 = sum(fused.values())
+    if l0 != ZBAND_LEVEL_FUSED[1] * n_scans:
+        raise AssertionError(f"13a: {l0} launches at shapes outside ZBAND_L12_CALLS ({fused}), "
+                             f"expected L0's {ZBAND_LEVEL_FUSED[1]} a scan")
+    return calls
+
+
+def phase_zband_levels(card, shipped, sd, stable, data, zband1, profile):
+    """13a: phase 4's path at ZBAND_LEVELS 2 and 3: launches per route a
+    scan, scores against the ZBAND_LEVELS 1 run (phase 4) within the bf16
+    bound 0.05, kernel ms and launches a scan with --profile; then K2 at the
+    L1 / L2 shapes against its plain version and timed."""
+    import torch
+
+    log("phase 13a: zband path at ZBAND_LEVELS 2 and 3 (config.yaml, zband, int8 off, bf16)")
+    n_scans = len(data[0])
+    out = {}
+    for zl in (2, 3):
+        cfg = twin(shipped, conv_mode="zband", zband_levels=zl, int8=False)
+        filt, run = drive(cfg, sd, stable, data)
+        label = f"zband_levels {zl}"
+        rec = dict(p50=check_run(run, data[1], cfg.tpu.topo_every, card, label),
+                   launches=run["launches"], shape_launches=run["shape_launches"],
+                   peak=run["peak"])
+        check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
+                             "zband_conv_fused": {"wmma": 0, "wgmma": ZBAND_LEVEL_FUSED[zl] * n_scans,
+                                                  "wgmma_k5": 0},
+                             "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, label)
+        rec["vs_levels_1"] = compare_runs(run, zband1, data[1], cfg.threshold, 0.05,
+                                          f"{label} vs ZBAND_LEVELS 1 (phase 4)")
+        if profile:
+            rec["profile"] = filter_kernel_ms(filt, data, card, label)
+        out[zl] = rec
+        del filt
+        torch.cuda.empty_cache()
+    if profile:
+        filt, _ = drive(twin(shipped, conv_mode="zband", zband_levels=1, int8=False), sd, stable,
+                        data)
+        out[1] = dict(profile=filter_kernel_ms(filt, data, card, "zband_levels 1"))
+        del filt
+        torch.cuda.empty_cache()
+    return out, zband_l12_calls(card, shipped.sps_config(1).caps.bricks,
+                                out[3]["shape_launches"], n_scans)
+
+
+FORM_SCANS = 3
+DEVICES = {"card": "cuda", "cpu": "cpu"}
+FORM_FIELDS = ("nbr27", "parent", "oct", "child", "parent_rows", "brick_of_row",
+               "lflat_of_row", "parity")
+
+
+def cpu_scan_grid(filt, scan, valid):
+    """The rebuild program's stride-1 grid of a scan, on the CPU
+    (StreamingFilter._rebuild_atlas's steps: pose, quantize, voxelize, the
+    map-overlap bit): (grid, point2slot, t_idx, valid)."""
+    import torch
+
+    from sps_torch.ops import atlas as atl
+    from sps_torch.ops import brick as bk
+
+    scfg = filt.sps_cfg
+    x, v = torch.as_tensor(scan)[None], torch.as_tensor(valid)[None]
+    vflat, coords, bidx, _ = filt._posed(x, v, torch.eye(4)[None])
+    ones = torch.ones(vflat.shape[0], dtype=torch.int32)
+    grid, p2s = atl.voxelize_bricks(coords, bidx, ones, vflat, num_time=2,
+                                    brick_capacity=scfg.caps.bricks[0],
+                                    brick_side=scfg.brick_side, extent=scfg.atlas_extent)
+    bvalid = torch.arange(scfg.caps.bricks[0]) < grid.num_bricks
+    mrow = atl.atlas_rows(filt.map_grid, torch.where(bvalid, 0, -1), grid.coords[:, 1:])
+    mocc = bk.take_rows(filt.map_grid.occ, mrow)[..., 0]
+    occ = torch.stack([grid.occ[..., 1] * mocc, grid.occ[..., 1]], dim=-1)
+    return grid._replace(occ=occ), p2s, ones, vflat
+
+
+def phase_atlas_forms(card, shipped, sd, stable, data):
+    """13b: the atlas engine's other pyramids at config.yaml in f32 (INT8
+    off, TF32 off): the all-brick pyramid (ROW_FROM 0) and the hybrid form
+    (ROW_FROM 2 at side 8, atlas.hybridize_levels; VOXELS raised where a
+    scan needs more rows, as gather_twin does) on phase 6's first
+    FORM_SCANS scans. Each scan's stride-1 grid is built once on the CPU
+    (the rebuild program's steps): on the card the points' quantization
+    differs from the CPU's by an ulp at a few voxel faces (ROADMAP.md §3),
+    which would move voxels; from the same grid the pyramid's tables on the
+    card equal the CPU's, its scores are within 1e-5 of the CPU's and within
+    1e-4 of the aliased pyramid's on the card (phase 12b's bound), no
+    overflow. Then each form's StreamingFilter on the card over the same
+    scans, rebuilding every scan, against the aliased pyramid's filter
+    within 1e-4, no overflow."""
+    import torch
+
+    from sps_torch.models import spsnet
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 13b: atlas forms (all-brick, hybrid ROW_FROM 2), f32, card vs CPU")
+    part = tuple(a[:FORM_SCANS] for a in data)
+    voxels = gather_twin(shipped, part).tpu.voxels
+    forms = {"aliased": twin(shipped, int8=False, bf16=False),
+             "all-brick": twin(shipped, row_from=0, int8=False, bf16=False),
+             "hybrid ROW_FROM 2": twin(shipped, row_from=2, voxels=voxels, int8=False,
+                                       bf16=False)}
+    base = StreamingFilter(forms["aliased"], sd, stable, device="cpu")
+    grids = [cpu_scan_grid(base, part[0][i], part[1][i]) for i in range(FORM_SCANS)]
+    aliased = []
+    out = {}
+    for name, cfg in forms.items():
+        scfg = cfg.sps_config(1)
+        models = {}
+        # The aliased pyramid (phases 3, 6 and 12b hold it) runs on the card only.
+        for where in ("card",) if name == "aliased" else ("card", "cpu"):
+            m = spsnet.SPSModel(scfg)
+            m.load_state_dict(sd, strict=True)
+            models[where] = m.to(DEVICES[where]).eval()
+        worst, worst_alias, kinds = 0.0, 0.0, None
+        for i, (grid, p2s, ones, vflat) in enumerate(grids):
+            res = {}
+            for where, m in models.items():
+                dev = DEVICES[where]
+                g = grid._replace(**{f: getattr(grid, f).to(dev) for f in
+                                     ("coords", "occ", "num_bricks", "atlas", "origin",
+                                      "overflow")})
+                with torch.inference_mode():
+                    levels, ov = spsnet.build_levels_from_grid(g, scfg)
+                    s, aux = m(levels=levels, p2v=p2s.to(dev), t_idx=ones.to(dev),
+                               valid=vflat.to(dev))
+                res[where] = (s.cpu(), bool(ov.any() | aux["overflow"].any()), levels)
+            kinds = [type(lv).__name__ for lv in res["card"][2]]
+            if name == "aliased":
+                aliased.append(res["card"][0])
+                if res["card"][1]:
+                    raise AssertionError(f"13b aliased scan {i}: capacity overflow")
+                continue
+            for li, (a, b) in enumerate(zip(res["card"][2], res["cpu"][2])):
+                for f in FORM_FIELDS:
+                    ta, tb = getattr(a, f, None), getattr(b, f, None)
+                    if ta is not None and not torch.equal(ta.cpu(), tb):
+                        raise AssertionError(f"13b {name} scan {i}: L{li} {f} card != CPU")
+                if not torch.equal(a.grid.occ.cpu(), b.grid.occ):
+                    raise AssertionError(f"13b {name} scan {i}: L{li} occupancy card != CPU")
+            d = float((res["card"][0] - res["cpu"][0]).abs().max())
+            da = float((res["card"][0] - aliased[i]).abs().max())
+            worst, worst_alias = max(worst, d), max(worst_alias, da)
+            log(f"  {name} scan {i}: tables card = CPU; max |score_card - score_cpu| {d:.3e}, "
+                f"vs the aliased pyramid on the card {da:.3e}; overflow {res['card'][1]}/"
+                f"{res['cpu'][1]}")
+            if res["card"][1] or res["cpu"][1]:
+                raise AssertionError(f"13b {name} scan {i}: capacity overflow")
+            if not (d <= 1e-5 and da <= 1e-4):
+                raise AssertionError(f"13b {name} scan {i}: |dscore| {d} (CPU) / {da} (aliased)")
+        if name == "aliased":
+            continue
+        out[name] = dict(max_dscore=worst, vs_aliased=worst_alias, levels=kinds)
+        log(f"  {name} {kinds}: max |dscore| card vs CPU {worst:.3e} (bound 1e-5), vs the "
+            f"aliased pyramid {worst_alias:.3e} (bound 1e-4) over {FORM_SCANS} scans [{card}]")
+        del models
+        torch.cuda.empty_cache()
+    # The card's own rebuild program on each form (StreamingFilter: voxelize,
+    # build_levels_from_grid, hybridize_levels) on every scan (TOPO_EVERY 0:
+    # a hybridized pyramid has no topology reuse, refresh_occupancy raises on
+    # it as sps_tpu's asserts), held against the aliased pyramid's filter in
+    # this run: one card voxelization for all three, so phase 12b's 1e-4
+    # holds; no overflow.
+    runs = {}
+    for name, cfg in forms.items():
+        cfg = twin(cfg, topo_every=0)
+        filt, run = drive(cfg, sd, stable, part)
+        p50 = check_run(run, part[1], 1, card, f"13b {name} StreamingFilter")
+        if name != "aliased":
+            out[name]["filter_vs_aliased"] = compare_runs(
+                run, runs["aliased"], part[1], cfg.threshold, 1e-4,
+                f"13b {name} StreamingFilter vs the aliased one on the card")
+            out[name]["filter_p50"] = p50
+        runs[name] = run
+        del filt
+        torch.cuda.empty_cache()
+    return out
+
+
+# Phase 14: sp and dp. SP_SCANS of phase 6's scans; the ghost runs' ghost
+# capacity a fraction of a block: on 2 ranks a BLT scan's blocks reference
+# up to a quarter of a block in the other's (at 0.25, L2 and L3 overflow).
+SP_SCANS = 3
+SP_GHOST_FRAC = 0.5
+SP_RANKS = 2
+
+
+def sp_runs(shipped):
+    """The sp filters of 14b: (label, config, ghost_frac). head_fold and the
+    fused z-band epilogue are off under sp, and topology reuse."""
+    zband = twin(shipped, conv_mode="zband", zband_levels=1, int8=False)
+    return [("shipped", shipped, 0.0), ("shipped ghost", shipped, SP_GHOST_FRAC),
+            ("int8-off f32 ghost", twin(shipped, int8=False, bf16=False), SP_GHOST_FRAC),
+            ("zband", zband, 0.0)]
+
+
+def one_rank_twin(cfg):
+    """The one-rank filter an sp run is held to: its options as the sp model
+    runs them (no HEAD_FOLD, the rebuild program every scan)."""
+    return twin(cfg, head_fold=False, topo_every=0)
+
+
+def run_filter(filt, data, n):
+    """(scores, stats, per-scan ms) of the filter over n scans."""
+    import torch
+
+    scans, valids, labels = data
+    pose = np.eye(4, dtype=np.float32)
+    lat, scores, stats = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s, _, st = filt(scans[i], valids[i], labels[i], pose)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        scores.append(s.float().cpu().numpy())
+        stats.append({k: float(v) for k, v in st.items()})
+    return scores, stats, lat
+
+
+def _rank_setup():
+    import torch
+
+    from sps_torch.ops import zband_conv as zc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zc.build()
+
+
+def sp_rank(rank, world, shipped, sd, stable, data):
+    """14b, one of the ranks on the card (gloo, collectives staged through
+    the host): every sp filter of sp_runs over the scans, launch counts and
+    host copies set to 0 just before each and read just after."""
+    from sps_torch.parallel import comm
+    from sps_torch.parallel import mesh as pm
+    from sps_torch.stream.engine import StreamingFilter
+
+    _rank_setup()
+    mesh = pm.make_mesh(world, "sp")
+    out = {}
+    for label, cfg, frac in sp_runs(shipped):
+        filt = StreamingFilter(cfg, sd, stable, mesh=mesh, sp_ghost_frac=frac)
+        reset_counts()
+        comm.HOST_STAGED["copies"] = 0
+        scores, stats, lat = run_filter(filt, data, len(data[0]))
+        out[label] = dict(scores=scores, stats=stats, lat=lat, launches=read_counts(),
+                          host_staged=comm.HOST_STAGED["copies"])
+    return out
+
+
+def phase_one_rank_nccl(card, shipped, sd, stable, data):
+    """14a: one rank on NCCL. The sp filter over a one-rank "sp" mesh at
+    config.yaml (INT8, bf16) bit-equal to the same filter without a group
+    (both with the sp model's options, one_rank_twin), and the dp step over
+    a one-rank "dp" mesh at config.yaml (bf16, batch 1) against the step
+    without a group: the parameters and BN statistics after it differ by no
+    more than two runs of the step without a group differ from each other
+    (0 where the step is deterministic on the card; deterministic algorithms
+    on where PyTorch has them)."""
+    import torch
+    import torch.distributed as dist
+
+    from sps_torch import train
+    from sps_torch.parallel import launch
+    from sps_torch.parallel import mesh as pm
+    from sps_torch.stream.engine import StreamingFilter
+
+    log("phase 14a: one rank on NCCL (sp filter and dp step at config.yaml against no group)")
+    part = tuple(a[:SP_SCANS] for a in data)
+    launch.init(0, 1, launch.free_port(), "nccl")
+    out = {}
+    try:
+        cfg = one_rank_twin(shipped)
+        a, _, _ = run_filter(StreamingFilter(cfg, sd, stable), part, SP_SCANS)
+        b, st, lat = run_filter(StreamingFilter(cfg, sd, stable, mesh=pm.make_mesh(1, "sp")),
+                                part, SP_SCANS)
+        same = all(np.array_equal(x, y) for x, y in zip(a, b))
+        log(f"  sp filter, one NCCL rank, {SP_SCANS} scans: scores bit-equal to no group: "
+            f"{same}; p50 {statistics.median(lat):.2f} ms [{card}]")
+        if not same or any(s["overflow"] for s in st):
+            raise AssertionError("14a: the one-rank sp filter differs from the filter")
+        out["sp_bit_equal"] = same
+        torch.cuda.empty_cache()
+
+        mesh = pm.make_mesh(1, "dp")
+        step = pm.make_dp_train_step(shipped, mesh, augment=False)
+        mp = torch.as_tensor(stable, device="cuda")
+        batch = {k: torch.as_tensor(v[:1], device="cuda")
+                 for k, v in (("xyz", data[0]), ("valid", data[1]), ("label", data[2]))}
+
+        def stepped(dp):
+            state = train.create_state(shipped, 0, 1)
+            if dp:
+                m = step(state, batch, mp)
+            else:
+                m = train.train_step(state, batch, mp, cfg=shipped, augment=False)
+            flat = torch.cat([v.float().reshape(-1) for v in state.model.state_dict().values()])
+            loss = float(m["loss"])
+            del state
+            torch.cuda.empty_cache()
+            return flat.cpu(), loss
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            (p1, l1), (p2, l2), (pd, ld) = stepped(False), stepped(False), stepped(True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        spread = float((p1 - p2).abs().max())
+        diff = float((pd - p1).abs().max())
+        log(f"  dp step, one NCCL rank: loss {ld:.6f} (no group {l1:.6f}, {l2:.6f}); max "
+            f"|param_dp - param_no_group| {diff:.3e}, two runs without a group differ by "
+            f"{spread:.3e}")
+        if not (np.isfinite(ld) and diff <= spread):
+            raise AssertionError("14a: the one-rank dp step differs from the step")
+        out.update(dp_max_diff=diff, no_group_spread=spread, loss=ld)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_sp_ranks(card, shipped, sd, stable, data):
+    """14b: SP_RANKS ranks spawned on the one card over gloo (NCCL refuses
+    two ranks on one card; every collective is staged through the host), the
+    sp filters of sp_runs on phase 6's first SP_SCANS scans, each rank's
+    scores against the one-rank filter (one_rank_twin): INT8 at ghost_frac 0
+    within the int8 tolerance (check_int8_parity), INT8 with ghosts within
+    0.1 (the int8 scale is a shard's own), INT8-off f32 with ghosts within
+    1e-5, the zband path within the bf16 bound 0.05 (the sp model runs the
+    unfused z-band kernel); the ranks' scores equal; 10 int8 gather launches
+    a scan on each rank with INT8; no overflow; host copies and p50."""
+    import torch
+
+    from sps_torch.parallel import launch
+    from sps_torch.stream.engine import StreamingFilter
+
+    log(f"phase 14b: sp on {SP_RANKS} ranks spawned on the one card (gloo, host-staged)")
+    part = tuple(a[:SP_SCANS] for a in data)
+    t = time.time()
+    ranks = launch.spawn(sp_rank, SP_RANKS, shipped, sd, stable, part, backend="gloo",
+                         timeout=900.0)
+    log(f"  ranks done in {time.time() - t:.1f} s")
+    eps = shipped.threshold
+    want = {}
+    out = {}
+    for label, cfg, frac in sp_runs(shipped):
+        key = (cfg.tpu.int8, cfg.tpu.bf16, cfg.tpu.conv_mode)
+        if key not in want:
+            want[key] = run_filter(StreamingFilter(one_rank_twin(cfg), sd, stable), part,
+                                   SP_SCANS)[0]
+            torch.cuda.empty_cache()
+        ref = want[key]
+        rec = {}
+        for r, res in enumerate(ranks):
+            run = res[label]
+            d = max(float(np.abs(a - b)[v].max()) for a, b, v in zip(run["scores"], ref, part[1]))
+            if label == "shipped":
+                for a, b, v in zip(run["scores"], ref, part[1]):
+                    check_int8_parity(a, b, v, eps)
+                bound = INT8_ATOL
+            else:
+                bound = {"shipped ghost": 0.1, "int8-off f32 ghost": 1e-5, "zband": 0.05}[label]
+            int8 = run["launches"]["brick_conv_int8_gather"]
+            log(f"  rank {r} {label:19s} (ghost_frac {frac}): max |dscore| vs one rank {d:.3e} "
+                f"(bound {bound}); int8 gather launches {int8}; host copies "
+                f"{run['host_staged']} ({run['host_staged'] / SP_SCANS:.0f} a scan); p50 "
+                f"{statistics.median(run['lat']):.2f} ms; overflow "
+                f"{[bool(s['overflow']) for s in run['stats']]} [{card}]")
+            if not d <= bound:
+                raise AssertionError(f"14b {label} rank {r}: |dscore| {d} exceeds {bound}")
+            if any(s["overflow"] for s in run["stats"]):
+                raise AssertionError(f"14b {label} rank {r}: overflow (ghost capacity?)")
+            if int8 != (10 * SP_SCANS if cfg.tpu.int8 else 0):
+                raise AssertionError(f"14b {label} rank {r}: {int8} int8 gather launches")
+            rec[r] = dict(max_dscore=d, int8_launches=int8, host_staged=run["host_staged"],
+                          p50=statistics.median(run["lat"]), launches=run["launches"])
+        if not all(np.array_equal(a, b) for a, b in zip(ranks[0][label]["scores"],
+                                                         ranks[1][label]["scores"])):
+            raise AssertionError(f"14b {label}: the ranks' scores differ")
+        out[label] = rec
+    return out
+
+
+def dp_rank(rank, world, shipped, stable, data):
+    """14c, one of the ranks on the card (gloo): the dp step at config.yaml
+    (bf16, augmentation off) on a batch of `world` scans, one a rank, three
+    times; the first a warm-up."""
+    import torch
+
+    from sps_torch import train
+    from sps_torch.parallel import comm
+    from sps_torch.parallel import mesh as pm
+
+    _rank_setup()
+    mesh = pm.make_mesh(world, "dp")
+    step = pm.make_dp_train_step(shipped, mesh, augment=False)
+    state = train.create_state(shipped, 0, 1)
+    mp = torch.as_tensor(stable, device="cuda")
+    batch = {k: torch.as_tensor(v[:world], device="cuda")
+             for k, v in (("xyz", data[0]), ("valid", data[1]), ("label", data[2]))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm.HOST_STAGED["copies"] = 0
+    reset_counts()
+    ms, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, batch, mp)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    flat = torch.cat([v.float().reshape(-1) for v in state.model.state_dict().values()])
+    return dict(ms=ms, losses=losses, peak=torch.cuda.max_memory_allocated(),
+                params=flat.cpu().numpy(), launches=read_counts(),
+                host_staged=comm.HOST_STAGED["copies"], overflow=bool(m["overflow"]))
+
+
+def phase_dp_ranks(card, shipped, stable, data):
+    """14c: a dp-2 training step at config.yaml (bf16, batch 1 a rank) on
+    two ranks spawned on the one card: the parameters bit-equal across the
+    ranks after each step, finite losses, step ms (the steps after the
+    first) and peak memory per rank, no z-band or int8 launch."""
+    from sps_torch.parallel import launch
+
+    log("phase 14c: a dp-2 training step at config.yaml, two ranks on the one card (gloo)")
+    ranks = launch.spawn(dp_rank, 2, shipped, stable, tuple(a[:2] for a in data),
+                         backend="gloo", timeout=900.0)
+    out = {}
+    for r, res in enumerate(ranks):
+        log(f"  rank {r}: losses {[round(x, 6) for x in res['losses']]}, step ms "
+            f"{[round(x, 1) for x in res['ms']]}, peak {res['peak'] / 2**30:.2f} GiB, host "
+            f"copies {res['host_staged']}, launches {res['launches']} [{card}]")
+        if not np.isfinite(res["losses"]).all() or res["overflow"]:
+            raise AssertionError(f"14c rank {r}: loss {res['losses']}, overflow {res['overflow']}")
+        no_train_launches([{"launches": res["launches"]}], f"14c rank {r}")
+        out[r] = dict(step_ms=statistics.median(res["ms"][1:]), ms=res["ms"], peak=res["peak"],
+                      losses=res["losses"], host_staged=res["host_staged"])
+    same = np.array_equal(ranks[0]["params"], ranks[1]["params"])
+    log(f"  parameters and BN statistics bit-equal across the ranks after 3 steps: {same}")
+    if not same:
+        raise AssertionError("14c: the ranks' parameters differ after the dp steps")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2919,6 +3464,11 @@ def main() -> int:
     hash_small = phase_hash_small(card)
     parity = phase_engines_parity(card, shipped, sd, stable, data)
     engines = phase_engines_times(card, shipped, sd, stable, data, parity["gather_voxels"])
+    zlevels, l12_calls = phase_zband_levels(card, shipped, sd, stable, data, zband, profile)
+    forms = phase_atlas_forms(card, shipped, sd, stable, data)
+    nccl1 = phase_one_rank_nccl(card, shipped, sd, stable, data)
+    sp2 = phase_sp_ranks(card, shipped, sd, stable, data)
+    dp2 = phase_dp_ranks(card, shipped, stable, data)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -2943,6 +3493,15 @@ def main() -> int:
                                          "library_ms", "bound_ms", "bound_by", "gflop",
                                          "gbytes")}
                       for c in calls],
+            **({"launches_13a": {f"zband_levels_{zl}": {"zband_conv": r["launches"]["zband_conv"],
+                                                         "zband_conv_fused": r["launches"][
+                                                             "zband_conv_fused"]}
+                                 for zl, r in zlevels.items() if "launches" in r},
+                "calls_13a": [{k: v for k, v in c.items() if k != "name"} for c in l12_calls],
+                "max_abs_err_13a": max(c["max_abs_err"] for c in l12_calls),
+                "launches_14b": {label: {r: rec["launches"]["zband_conv"]
+                                         for r, rec in sp2[label].items()}
+                                 for label in sp2}} if name == "zband_conv_fused" else {}),
         })
     kc = k3["variants"]["kernel-conv"]
     times = {"ms": kc["ms"], "plain_ms": k3["plain_ms"],
@@ -2987,6 +3546,8 @@ def main() -> int:
                              "brick_conv_int8_gather"],
                          "calls_bit_equal": engines["brick region INT8"]["int8_calls"]},
         "loop_launches": {k: r["launches"] for k, r in loop.items()},
+        "sp_launches_14b": {label: {r: rec["int8_launches"] for r, rec in sp2[label].items()}
+                            for label in sp2},
         "offline_launches": {**{f"gate_{k}": r["launches"] for k, r in gate.items()},
                              "predict_blt": predict_blt["launches"],
                              "replay": replay["launches"]},
@@ -3021,7 +3582,16 @@ def main() -> int:
         f"within {parity['gather']:.2e} / {parity['brick (side 8, region)']:.2e} of atlas, 12c "
         f"p50 " + ", ".join(f"{k} {v['p50']:.2f} ms ({v['syncs']:.0f} syncs, "
                             f"{v['profile']['kernel_ms']:.2f} ms of kernels)"
-                            for k, v in engines.items()))
+                            for k, v in engines.items())
+        + "; 13a zband_levels 2 / 3 p50 " + " / ".join(
+            f"{zlevels[zl]['p50']:.2f}" for zl in (2, 3)) + " ms; 13b card vs CPU " + ", ".join(
+            f"{k} {v['max_dscore']:.2e}" for k, v in forms.items()) + ", filters vs aliased "
+        + ", ".join(f"{k} {v['filter_vs_aliased']['max_dscore']:.2e}" for k, v in forms.items())
+        + f"; 14a sp bit-equal {nccl1['sp_bit_equal']}, dp step within "
+        f"{nccl1['dp_max_diff']:.2e}; 14b p50 rank 0 " + ", ".join(
+            f"{k} {v[0]['p50']:.1f} ms" for k, v in sp2.items())
+        + f"; 14c dp-2 step {dp2[0]['step_ms']:.1f} / {dp2[1]['step_ms']:.1f} ms, peak "
+        f"{dp2[0]['peak'] / 2**30:.2f} / {dp2[1]['peak'] / 2**30:.2f} GiB")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

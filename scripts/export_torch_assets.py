@@ -3,7 +3,8 @@
 its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
-        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines,hash]
+        [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines,hash,
+                sp,dp]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -93,9 +94,32 @@ Writes, under sps_torch/assets/:
                                   StreamingFilter's scores and integer stats
                                   for both scans; `meta` holds the world and
                                   configuration as JSON (hash_meta), from which
-                                  chip_smoke.py phase 12a rebuilds them.
+                                  chip_smoke.py phase 12a rebuilds them;
+  sp_scores_pin.npz               sps_tpu's single-device SPSModel scores on
+                                  tests/test_spatial.py's slab world (sp_points),
+                                  f32, MinkUNet14 narrowed, with the port's
+                                  seeded weights (seed 0), for the aliased
+                                  pyramid (row_from 3) and the all-brick one
+                                  (SP_FORMS, sp_configs): what the spawned ranks
+                                  of tests/test_torch_spatial.py are held to;
+  dp_step_pin.npz                 sps_tpu's make_dp_train_step on a 2-device CPU
+                                  mesh: the train pin's configuration and batch
+                                  (two different samples, one a device), its
+                                  initial variables, the loss and r2, the
+                                  averaged gradients, and the batch_stats and
+                                  parameters after the step.
+  sp_step_pin.npz                 sps_tpu's grad_step(sp_axis="sp") under
+                                  shard_map on 2 and 4 CPU devices, and its
+                                  unsharded grad_step, on the sp step's
+                                  configuration (sps_tpu's dry-run
+                                  configuration at voxel 0.25, MinkUNet14
+                                  narrowed, f32; sp_step_config) and batch
+                                  (sp_step_inputs): its initial variables, and
+                                  for each world the loss, r2, overflow, the
+                                  gradients summed over sp and the batch_stats
+                                  after the step (written with --only sp).
 
-Runs on the CPU: ckpt, loop, train, baselines and hash in a few minutes, loc ~14 min
+Runs on the CPU: ckpt, loop, train, baselines, hash, sp and dp in a few minutes, loc ~14 min
 (--scans 20), parity and predict several minutes each (bf16 on XLA:CPU is slow),
 loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU).
 """
@@ -113,6 +137,11 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+# The dp pin runs sps_tpu's step on a 2-device CPU mesh, the sp step pin on 2
+# and 4 devices (set before JAX starts).
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=4").strip()
 
 import numpy as np  # noqa: E402
 
@@ -725,14 +754,214 @@ def export_hash_pin():
         f"({time.time() - t:.0f} s)")
 
 
+# tests/test_spatial.py's slab world and the sp tests' model: MinkUNet14
+# narrowed, the atlas engine with side-8 bricks, conv_mode region (the
+# default), L0 capacity 1024 bricks (divisible by 2 and 4 ranks).
+SP_CAPS = dict(points=2048, voxels=(1024, 512, 512, 256, 128), bricks=(1024, 512, 256, 256, 256))
+SP_UNET = dict(in_channels=1, out_channels=1, init_dim=4, planes=(4, 8, 8, 8, 8, 8, 8, 4),
+               num_time=2)
+SP_ATLAS = dict(voxel_size=0.25, engine="atlas", brick_side=8, atlas_extent=(2, 24, 24, 24))
+SP_FORMS = {"row_from3": 3, "all_brick": None}
+SP_SEED = 13
+SP_WEIGHTS_SEED = 0
+
+
+def sp_points(seed=SP_SEED):
+    """tests/test_spatial.py's _slab_batch: one jittered point per 2 m brick
+    over a 22 x 22 x 2 lattice (968 bricks at side 8, voxel 0.25): (xyz,
+    batch, t, label)."""
+    rng = np.random.default_rng(seed)
+    xs = np.arange(-22.0, 22.0, 2.0, dtype=np.float32)
+    gx, gy, gz = np.meshgrid(xs, xs, np.asarray([0.0, 2.0], np.float32))
+    n = gx.size
+    base = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=-1)
+    xyz = base + rng.uniform(0, 2.0, (n, 3)).astype(np.float32)
+    return (xyz, np.zeros(n, np.int64), rng.integers(0, 2, size=n),
+            rng.uniform(0, 1, size=n).astype(np.float32))
+
+
+def sp_configs(row_from):
+    """(sps_tpu's SPSConfig, the port's) of the sp model at `row_from`."""
+    from sps_torch.models import spsnet as tsps
+    from sps_torch.models.minkunet import MinkUNetConfig as TUNetConfig
+    from sps_torch.structs import Capacities as TCaps
+    from sps_tpu.models import spsnet as jsps
+    from sps_tpu.models.minkunet import MinkUNetConfig as JUNetConfig
+    from sps_tpu.structs import Capacities as JCaps
+
+    return (jsps.SPSConfig(caps=JCaps(**SP_CAPS), unet=JUNetConfig(**SP_UNET), row_from=row_from,
+                           **SP_ATLAS),
+            tsps.SPSConfig(caps=TCaps(**SP_CAPS), unet=TUNetConfig(**SP_UNET), row_from=row_from,
+                           **SP_ATLAS))
+
+
+def export_sp_pin():
+    import jax
+
+    from sps_torch.models import spsnet as tsps
+    from sps_tpu.models.spsnet import SPSModel
+    from sps_tpu.structs import pad_point_batch
+
+    out = {}
+    pb = pad_point_batch(*sp_points(), SP_CAPS["points"])
+    for form, row_from in SP_FORMS.items():
+        t = time.time()
+        jcfg, tcfg = sp_configs(row_from)
+        sd = tsps.init_state_dict(tcfg, seed=SP_WEIGHTS_SEED)
+        scores, aux = jax.jit(lambda v, b: SPSModel(jcfg).apply(v, b))(
+            jax.tree.map(np.asarray, flax_tree(sd)), pb)
+        out[f"{form}/scores"] = np.asarray(scores)
+        out[f"{form}/overflow"] = np.asarray(aux["overflow"])
+        log(f"sp pin {form}: overflow {out[f'{form}/overflow'].tolist()} "
+            f"({time.time() - t:.0f} s)")
+    np.savez_compressed(os.path.join(ASSETS, "sp_scores_pin.npz"), **out)
+
+
+# The sp training step: sps_tpu's dry-run configuration (parallel/mesh.py
+# dryrun: atlas, side 8, halo convs, row levels from L3; L0 capacity 512
+# bricks, divisible by 2 and 4 ranks) at voxel 0.25, MinkUNet14 narrowed.
+SP_STEP_TPU = dict(scan_points=256, submap_points=256, cell_capacity=1024,
+                   voxels=(1024, 512, 256, 256, 256), bricks=(512, 256, 256, 256, 256),
+                   engine="atlas", brick_side=8, atlas_extent=(24, 24, 24), conv_mode="halo",
+                   row_from=3)
+SP_STEP_VOXEL = 0.25
+SP_STEP_WORLDS = (1, 2, 4)
+
+
+def sp_step_meta() -> dict:
+    return {"voxel_size": SP_STEP_VOXEL, "tpu": SP_STEP_TPU, "narrow": LOOP_NARROW,
+            "worlds": SP_STEP_WORLDS}
+
+
+def sp_step_config(mod):
+    """The sp step's configuration as an instance of `mod`'s Config."""
+    cfg = mod.Config(data=mod.DataConfig(root="/tmp"), train=mod.TrainConfig(batch_size=1, lr=1e-3),
+                     tpu=mod.TPUConfig(**SP_STEP_TPU), voxel_size=SP_STEP_VOXEL)
+
+    class Narrow(type(cfg)):
+        def sps_config(self, batch_size=None):
+            s = super().sps_config(batch_size)
+            return dataclasses.replace(s, unet=dataclasses.replace(s.unet, **LOOP_NARROW))
+
+    return Narrow(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+def sp_step_inputs():
+    """One sample of uniform points in a 10 m cube with uniform labels, and a
+    uniform map (numpy)."""
+    rnp = np.random.default_rng(2)
+    ns = SP_STEP_TPU["scan_points"]
+    batch = {"xyz": rnp.uniform(-5, 5, (1, ns, 3)).astype(np.float32),
+             "label": rnp.uniform(0, 1, (1, ns)).astype(np.float32),
+             "valid": np.ones((1, ns), bool)}
+    return batch, np.random.default_rng(3).uniform(-5, 5, (2048, 3)).astype(np.float32)
+
+
+def export_sp_step_pin():
+    import jax
+    from flax import struct
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu import train as tr
+    from sps_tpu.parallel.mesh import shard_map
+
+    class Recording(tr.TrainState):
+        """TrainState that keeps the gradients of its last update."""
+
+        grads: object = struct.field(default=None)
+
+        def apply_gradients(self, *, grads, **kw):
+            return super().apply_gradients(grads=grads, **kw).replace(grads=grads)
+
+    t = time.time()
+    batch, mp = sp_step_inputs()
+    cfg = sp_step_config(jcfg_mod)
+    s0 = tr.create_state(cfg, jax.random.PRNGKey(0), steps_per_epoch=1)
+    out = {"map": mp, "meta": np.asarray(json.dumps(sp_step_meta())),
+           **{f"batch/{k}": v for k, v in batch.items()},
+           **{f"init/{k}": np.asarray(v) for k, v in
+              flat_tree({"params": s0.params, "batch_stats": s0.batch_stats}).items()}}
+    key = jax.random.PRNGKey(1)
+    for n in SP_STEP_WORLDS:
+        state = Recording.create(apply_fn=s0.apply_fn, params=s0.params,
+                                 batch_stats=s0.batch_stats, tx=s0.tx,
+                                 grads=jax.tree.map(np.zeros_like, s0.params))
+        sp_axis = "sp" if n > 1 else None
+
+        def local(st, b, m, k, sp_axis=sp_axis):
+            return tr.grad_step(st, b, m, k, cfg=cfg, augment=False, sp_axis=sp_axis)
+
+        if n > 1:
+            local = shard_map(local, mesh=Mesh(np.asarray(jax.devices()[:n]), ("sp",)),
+                              in_specs=(P(), P(), P(), P()), out_specs=(P(), P()),
+                              check_rep=False)
+        state, m = jax.jit(local)(state, batch, mp, key)
+        out.update({f"{n}/loss": np.float64(m["loss"]), f"{n}/r2": np.float64(m["r2"]),
+                    f"{n}/overflow": np.bool_(m["overflow"])})
+        for prefix, tree in (("grads", flat_tree(state.grads)),
+                             ("batch_stats_1", flat_tree(state.batch_stats))):
+            out.update({f"{n}/{prefix}/{leaf}": np.asarray(a) for leaf, a in tree.items()})
+        log(f"sp step pin, {n} device(s): loss {out[f'{n}/loss']:.6f}, overflow "
+            f"{bool(out[f'{n}/overflow'])}")
+    np.savez_compressed(os.path.join(ASSETS, "sp_step_pin.npz"), **out)
+    log(f"sp step pin ({time.time() - t:.0f} s)")
+
+
+def export_dp_pin():
+    import jax
+    from flax import struct
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu import train as tr
+    from sps_tpu.parallel import mesh as pm
+
+    class Recording(tr.TrainState):
+        """TrainState that keeps the gradients of its last update."""
+
+        grads: object = struct.field(default=None)
+
+        def apply_gradients(self, *, grads, **kw):
+            return super().apply_gradients(grads=grads, **kw).replace(grads=grads)
+
+    t = time.time()
+    batch, mp = train_inputs()
+    cfg = train_config(jcfg_mod)
+    s0 = tr.create_state(cfg, jax.random.PRNGKey(0), steps_per_epoch=1)
+    mesh = pm.make_mesh(2)
+    rep, shard = NamedSharding(mesh, P()), NamedSharding(mesh, P("dp"))
+    state = jax.device_put(Recording.create(apply_fn=s0.apply_fn, params=s0.params,
+                                            batch_stats=s0.batch_stats, tx=s0.tx,
+                                            grads=jax.tree.map(np.zeros_like, s0.params)), rep)
+    step = pm.make_dp_train_step(cfg, mesh, augment=False)
+    init = flat_tree({"params": s0.params, "batch_stats": s0.batch_stats})
+    state, m = step(state, {k: jax.device_put(v, shard) for k, v in batch.items()},
+                    jax.device_put(mp, rep),
+                    jax.device_put(jax.random.split(jax.random.PRNGKey(1), 2), shard))
+    out = {"map": mp, "meta": np.asarray(json.dumps(train_meta())),
+           **{f"batch/{k}": v for k, v in batch.items()},
+           "loss": np.float64(m["loss"]), "r2": np.float64(m["r2"]),
+           "overflow": np.bool_(m["overflow"])}
+    for prefix, tree in (("init", init), ("grads", flat_tree(state.grads)),
+                         ("batch_stats_1", flat_tree(state.batch_stats)),
+                         ("params_1", flat_tree(state.params))):
+        out.update({f"{prefix}/{leaf}": np.asarray(a) for leaf, a in tree.items()})
+    np.savez_compressed(os.path.join(ASSETS, "dp_step_pin.npz"), **out)
+    log(f"dp pin: loss {out['loss']:.6f}, r2 {out['r2']:.6f}, overflow {bool(out['overflow'])} "
+        f"({time.time() - t:.0f} s)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
     ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train,"
-                                      "baselines,loc_baselines,hash",
+                                      "baselines,loc_baselines,hash,sp,dp",
                     help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
-                         "predict, train, baselines, loc_baselines, hash")
+                         "predict, train, baselines, loc_baselines, hash, sp, dp")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -756,6 +985,11 @@ def main(argv=None):
         export_loc_baselines_pin(args.scans)
     if "hash" in parts:
         export_hash_pin()
+    if "sp" in parts:
+        export_sp_pin()
+        export_sp_step_pin()
+    if "dp" in parts:
+        export_dp_pin()
 
 
 if __name__ == "__main__":

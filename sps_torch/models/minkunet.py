@@ -29,6 +29,13 @@ levels run as int8 convs (the brick_conv_int8 kernel); with head_fold
 the 1x1 head runs on the z-folded layout. With stem_zband the k = 5 stem
 alone runs folded (in bf16 the zband_conv kernel's "wgmma_k5" route), then
 unfolds.
+
+With sp_axis set the UNet runs spatially sharded (parallel/spatial.py):
+levels come sliced to this rank's block of rows, every conv with a spatial
+kernel assembles its gather source (the all-gathered level, or local +
+ghost rows) and keeps the local block as its centre, train-mode BatchNorm
+sums its moments over the axis, and the fused z-band epilogue, stem_zband
+and head_fold are off, as in sps_tpu.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from torch.utils.checkpoint import checkpoint
 from sps_torch.ops import atlas as atl
 from sps_torch.ops import brick as bk
 from sps_torch.ops import sparse_conv as sc
+from sps_torch.parallel import comm
+from sps_torch.parallel import spatial as sp_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +86,12 @@ class MinkUNetConfig:
     remat: bool = False
     # Run the 1x1 head on the z-folded layout (same memory order).
     head_fold: bool = False
+    # Spatial sharding (parallel/spatial.py): the mesh axis over which every
+    # level's brick / row axis is split (None: one device), and with
+    # sp_ghost_frac > 0 the ghost exchange in place of each conv's
+    # all-gather, ghost capacity sp_ghost_frac * block per source level.
+    sp_axis: str | None = None
+    sp_ghost_frac: float = 0.0
 
 
 def _kaiming(shape, generator=None):
@@ -120,12 +135,15 @@ class MaskedBatchNorm(nn.Module):
     variance (count clamped at 2), torch's convention, so converted
     checkpoints evaluate identically. Eval: the running statistics, in the
     compute dtype. `update_stats` False keeps the running averages (set
-    while remat recomputes a block)."""
+    while remat recomputes a block). With sp_axis the batch's statistics are
+    the moments (sum, sum of squares, count) summed over the axis, var =
+    s2 / n - mean^2, as sps_tpu's."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, sp_axis: str | None = None):
         super().__init__()
         self.features = features
         self.eps = eps
+        self.sp_axis = sp_axis
         self.update_stats = True
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -147,10 +165,19 @@ class MaskedBatchNorm(nn.Module):
         t = occ.shape[-1]
         f2 = feats.reshape(-1, feats.shape[-1]).float()
         o2 = occ.reshape(-1, t)
-        mean, var = sc.masked_batch_stats(f2, o2)
+        if self.sp_axis is None:
+            mean, var = sc.masked_batch_stats(f2, o2)
+            cnt = torch.clamp_min(o2.sum(dtype=torch.float32), 2.0)
+        else:
+            c = self.features
+            s1, s2, n = sc.masked_batch_moments(f2, o2)
+            tot = comm.psum(torch.cat([s1, s2, n[None]]), self.sp_axis)
+            s1, s2, n = tot[:c], tot[c : 2 * c], tot[2 * c]
+            cnt = torch.clamp_min(n, 2.0)
+            mean = s1 / torch.clamp_min(n, 1.0)
+            var = torch.clamp_min(s2 / torch.clamp_min(n, 1.0) - mean**2, 0.0)
         if self.update_stats:
             with torch.no_grad():
-                cnt = torch.clamp_min(o2.sum(dtype=torch.float32), 2.0)
                 m = BN_MOMENTUM
                 self.mean.copy_((1 - m) * self.mean + m * mean)
                 self.var.copy_((1 - m) * self.var + m * (var * cnt / (cnt - 1.0)))
@@ -165,10 +192,11 @@ class SpConv(nn.Module):
     """Stride-1 sparse conv (brick or row level)."""
 
     def __init__(self, cin, cout, ksize, time_kernel, num_time, *, use_bias=False,
-                 conv_mode="region", mask_out=True, int8=False, generator=None):
+                 conv_mode="region", mask_out=True, int8=False, sp_axis=None, generator=None):
         super().__init__()
         self.ksize, self.num_time = ksize, num_time
         self.conv_mode, self.mask_out, self.int8 = conv_mode, mask_out, int8
+        self.sp_axis = sp_axis
         self.kernel = nn.Parameter(_kaiming((ksize**3, time_kernel, cin, cout), generator))
         self.bias = nn.Parameter(torch.zeros(cout)) if (use_bias and ksize == 1) else None
 
@@ -177,6 +205,11 @@ class SpConv(nn.Module):
         'scale'/'bias', channel-repeated 'occ_rep', optional masked 'res' and
         'relu', fused into the zband_conv_fused kernel."""
         w = self.kernel.to(feats.dtype)
+        center = None
+        if self.sp_axis is not None and self.ksize > 1:
+            # feats is the local block; the tables name source rows.
+            center = feats
+            feats = sp_mod.gather_source(feats, lvl, "self", self.sp_axis)
         if self.ksize == 1:
             wp = sc.pack_time_toeplitz(w, self.num_time)[0]
             reps = self.num_time
@@ -198,16 +231,19 @@ class SpConv(nn.Module):
                         epilogue["occ_rep"], epilogue.get("res"),
                         num_time=self.num_time, relu=epilogue.get("relu", True),
                     )
-                return bk.brick_conv_zband(feats, lvl.nbr27, wd, occ, mask_out=self.mask_out)
+                return bk.brick_conv_zband(feats, lvl.nbr27, wd, occ, mask_out=self.mask_out,
+                                           center=center)
             if self.int8 and self.ksize == 3 and not self.training:
                 # Inference only. Quantize from the f32 master kernel, not
                 # the compute-dtype cast.
                 wd8 = bk.pack_dense_kernel(self.kernel, self.num_time)
-                return bk.brick_conv_int8(feats, lvl.nbr27, wd8, occ, mask_out=self.mask_out)
+                return bk.brick_conv_int8(feats, lvl.nbr27, wd8, occ, mask_out=self.mask_out,
+                                          center=center)
             # Unfolded levels under "zband" use the halo assembly; kernels
             # other than 3^3 run "halo" under every mode (bk.brick_conv).
             mode = "halo" if self.conv_mode == "zband" else self.conv_mode
-            return bk.brick_conv(feats, lvl.nbr27, wd, occ, mode, mask_out=self.mask_out)
+            return bk.brick_conv(feats, lvl.nbr27, wd, occ, mode, mask_out=self.mask_out,
+                                 center=center)
         wp = sc.pack_time_toeplitz(w, self.num_time)
         if _is_row(lvl):
             assert self.ksize == 3, "row levels carry 27-neighbour tables only"
@@ -220,15 +256,17 @@ class SpConv(nn.Module):
 class SpConvDown(nn.Module):
     """Kernel (2,2,2,1), stride (2,2,2,1) conv."""
 
-    def __init__(self, cin, cout, num_time, *, mask_out=True, generator=None):
+    def __init__(self, cin, cout, num_time, *, mask_out=True, sp_axis=None, generator=None):
         super().__init__()
-        self.num_time, self.mask_out = num_time, mask_out
+        self.num_time, self.mask_out, self.sp_axis = num_time, mask_out, sp_axis
         self.kernel = nn.Parameter(_kaiming((8, 1, cin, cout), generator))
 
     def forward(self, feats, coarse_lvl, fold_out=False):
         """fold_out: return z-folded (the target level is zband-folded)."""
         wp = sc.pack_time_toeplitz(self.kernel.to(feats.dtype), self.num_time)
         occ = occ_of(coarse_lvl)
+        if self.sp_axis is not None:
+            feats = sp_mod.gather_source(feats, coarse_lvl, "child", self.sp_axis)
         if _is_brick(coarse_lvl):
             fin = feats
             if feats.dim() == 4:  # z-folded source level: unfold for the gather
@@ -247,15 +285,17 @@ class SpConvDown(nn.Module):
 class SpConvUp(nn.Module):
     """Transpose conv (2,2,2,1) stride 2."""
 
-    def __init__(self, cin, cout, num_time, *, mask_out=True, generator=None):
+    def __init__(self, cin, cout, num_time, *, mask_out=True, sp_axis=None, generator=None):
         super().__init__()
-        self.num_time, self.mask_out = num_time, mask_out
+        self.num_time, self.mask_out, self.sp_axis = num_time, mask_out, sp_axis
         self.kernel = nn.Parameter(_kaiming((8, 1, cin, cout), generator))
 
     def forward(self, feats, fine_lvl, fold_out=False):
         """fold_out: return z-folded (the target level is zband-folded)."""
         wp = sc.pack_time_toeplitz(self.kernel.to(feats.dtype), self.num_time)
         occ = occ_of(fine_lvl)
+        if self.sp_axis is not None:
+            feats = sp_mod.gather_source(feats, fine_lvl, "parent", self.sp_axis)
         if _is_brick(fine_lvl):
             if fine_lvl.parent_rows is not None:
                 # Brick/row boundary: coarse side is voxel rows.
@@ -281,20 +321,21 @@ class BasicBlock(nn.Module):
     exactly zero), as the halo and neighbour gathers require."""
 
     def __init__(self, cin, planes, num_time, block_kernel=3, conv_mode="region",
-                 int8=False, remat=False, generator=None):
+                 int8=False, remat=False, sp_axis=None, generator=None):
         super().__init__()
         self.cin, self.planes, self.conv_mode, self.remat = cin, planes, conv_mode, remat
+        self.sp_axis = sp_axis
         t = num_time
         self.conv1 = SpConv(cin, planes, block_kernel, 3, t, conv_mode=conv_mode,
-                            mask_out=False, int8=int8, generator=generator)
-        self.norm1 = MaskedBatchNorm(planes)
+                            mask_out=False, int8=int8, sp_axis=sp_axis, generator=generator)
+        self.norm1 = MaskedBatchNorm(planes, sp_axis=sp_axis)
         self.conv2 = SpConv(planes, planes, block_kernel, 3, t, conv_mode=conv_mode,
-                            mask_out=False, int8=int8, generator=generator)
-        self.norm2 = MaskedBatchNorm(planes)
+                            mask_out=False, int8=int8, sp_axis=sp_axis, generator=generator)
+        self.norm2 = MaskedBatchNorm(planes, sp_axis=sp_axis)
         if cin != planes:
             self.downsample_conv = SpConv(cin, planes, 1, 1, t, mask_out=False,
                                           generator=generator)
-            self.downsample_norm = MaskedBatchNorm(planes)
+            self.downsample_norm = MaskedBatchNorm(planes, sp_axis=sp_axis)
 
     def _residual(self, feats, lvl, occ):
         if self.cin == self.planes:
@@ -321,8 +362,8 @@ class BasicBlock(nn.Module):
         return self._forward(feats, lvl, occ)
 
     def _forward(self, feats, lvl, occ):
-        if (not self.training and self.conv_mode == "zband" and _is_brick(lvl)
-                and feats.dim() == 4):
+        if (not self.training and self.sp_axis is None and self.conv_mode == "zband"
+                and _is_brick(lvl) and feats.dim() == 4):
             # Folded zband level: conv + BN (+ residual) + relu + mask fused
             # into the kernel epilogue. occ * relu(x*s+b) == relu(occ*(x*s+b))
             # for occ in {0, 1}, so this equals the unfused path.
@@ -346,10 +387,10 @@ class MinkUNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         t, p, d0 = cfg.num_time, cfg.planes, cfg.init_dim
-        g = generator
+        g, sp = generator, cfg.sp_axis
         self.conv0p1s1 = SpConv(cfg.in_channels, d0, cfg.first_kernel, 1, t,
-                                conv_mode=cfg.conv_mode, mask_out=False, generator=g)
-        self.bn0 = MaskedBatchNorm(d0)
+                                conv_mode=cfg.conv_mode, mask_out=False, sp_axis=sp, generator=g)
+        self.bn0 = MaskedBatchNorm(d0, sp_axis=sp)
         enc = [("conv1p1s2", "bn1", d0, d0, d0, p[0]),
                ("conv2p2s2", "bn2", p[0], p[0], p[0], p[1]),
                ("conv3p4s2", "bn3", p[1], p[1], p[1], p[2]),
@@ -361,14 +402,14 @@ class MinkUNet(nn.Module):
         self.stages = []
         for i, (conv, bn, cin, cout, bcin, planes) in enumerate(enc + dec):
             cls = SpConvDown if i < 4 else SpConvUp
-            setattr(self, conv, cls(cin, cout, t, mask_out=False, generator=g))
-            setattr(self, bn, MaskedBatchNorm(cout))
+            setattr(self, conv, cls(cin, cout, t, mask_out=False, sp_axis=sp, generator=g))
+            setattr(self, bn, MaskedBatchNorm(cout, sp_axis=sp))
             blocks = []
             for j in range(cfg.layers[i]):
                 name = f"block{i + 1}_{j}"
                 setattr(self, name, BasicBlock(bcin if j == 0 else planes, planes, t,
                                                cfg.block_kernel, cfg.conv_mode,
-                                               cfg.int8, cfg.remat, generator=g))
+                                               cfg.int8, cfg.remat, sp, generator=g))
                 blocks.append(name)
             self.stages.append((conv, bn, blocks))
         self.final = SpConv(p[7], cfg.out_channels, 1, 1, t, use_bias=True, generator=g)
@@ -386,7 +427,8 @@ class MinkUNet(nn.Module):
         occ = [occ_lvl(i, lv) for i, lv in enumerate(levels)]
         if fold[0] and feats.dim() == 5:
             feats = bk.fold_z(feats)
-        stem_fold = cfg.stem_zband and not fold[0] and _is_brick(levels[0]) and feats.dim() == 5
+        stem_fold = (cfg.stem_zband and cfg.sp_axis is None and not fold[0]
+                     and _is_brick(levels[0]) and feats.dim() == 5)
 
         with record_function("sps.stem"):
             if stem_fold:
@@ -412,7 +454,7 @@ class MinkUNet(nn.Module):
             if i < 3:
                 skips.append(x)
 
-        if cfg.head_fold and _is_brick(levels[0]) and x.dim() == 5:
+        if cfg.head_fold and cfg.sp_axis is None and _is_brick(levels[0]) and x.dim() == 5:
             # Folded head: the 1x1 as the block-diagonal kron on the folded
             # layout, returned folded; its memory order is the unfolded
             # one's, so devoxelize_flat reads it unchanged.

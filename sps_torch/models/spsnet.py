@@ -24,6 +24,8 @@ from sps_torch.ops import atlas as atl
 from sps_torch.ops import brick as bk
 from sps_torch.ops import topology as topo
 from sps_torch.ops import voxelize as vox
+from sps_torch.parallel import comm
+from sps_torch.parallel import spatial as sp_mod
 from sps_torch.structs import Capacities, PointBatch
 
 NUM_LEVELS = 5
@@ -37,14 +39,14 @@ class SPSConfig:
     caps: Capacities = Capacities()
     unet: MinkUNetConfig = MinkUNetConfig(in_channels=1, out_channels=1, num_time=2)
     # The defaults are sps_tpu's. "atlas", "brick" or "gather" (any other
-    # name is the gather engine, as in sps_tpu). The atlas engine runs with
-    # brick_side 8 and row_from >= 3 only (aliased row levels);
-    # build_levels_from_grid raises NotImplementedError on its other forms.
+    # name is the gather engine, as in sps_tpu).
     engine: str = "brick"
     brick_side: int = 4
     # Static atlas window (NB, NX, NY, NZ) in bricks.
     atlas_extent: tuple = (2, 256, 256, 96)
-    # Levels >= row_from run as voxel rows aliased to brick level li-3.
+    # Atlas engine: levels >= row_from run as voxel rows (None: all bricks),
+    # aliased to brick level li-3 with side 8 and row_from >= 3, else built
+    # by atlas.hybridize_levels with row capacities caps.voxels.
     row_from: int | None = None
     dist_feature: bool = False
     dist_cap: float = 1.0
@@ -52,17 +54,20 @@ class SPSConfig:
 
 def build_levels_from_grid(grid, cfg: SPSConfig):
     """Topology pyramid from a stride-1 grid of any engine: an AtlasGrid
-    gives brick levels [0, row_from) plus aliased row levels, a BrickGrid
-    five brick levels, a VoxelGrid five voxel-row levels. Returns (levels,
+    gives brick levels [0, row_from) plus row levels (aliased with side 8
+    and row_from >= 3: the deep brick levels are never built; hybridized
+    otherwise) or, with row_from None, five brick levels; a BrickGrid five
+    brick levels, a VoxelGrid five voxel-row levels. Returns (levels,
     overflow)."""
     if isinstance(grid, atl.AtlasGrid):
-        if not (cfg.row_from is not None and cfg.row_from >= 3 and cfg.brick_side == 8):
-            raise NotImplementedError(
-                "the port builds the atlas pyramid with aliased row levels (brick_side 8, "
-                "row_from >= 3) only; sps_tpu's other atlas forms (all-brick, "
-                "atlas.hybridize_levels) are not ported")
-        levels = atl.build_levels(grid, num_levels=cfg.row_from, capacities=cfg.caps.bricks)
-        levels = atl.alias_row_levels(levels, NUM_LEVELS)
+        if cfg.row_from is not None and cfg.row_from >= 3 and cfg.brick_side == 8:
+            # Side-8 identity: level-(k+3) voxels are level-k bricks.
+            levels = atl.build_levels(grid, num_levels=cfg.row_from, capacities=cfg.caps.bricks)
+            levels = atl.alias_row_levels(levels, NUM_LEVELS)
+        else:
+            levels = atl.build_levels(grid, num_levels=NUM_LEVELS, capacities=cfg.caps.bricks)
+            if cfg.row_from is not None:
+                levels = atl.hybridize_levels(levels, cfg.row_from, cfg.caps.voxels)
     elif isinstance(grid, bk.BrickGrid):
         levels = bk.build_brick_levels(grid, num_levels=NUM_LEVELS, capacities=cfg.caps.bricks)
     else:
@@ -108,6 +113,9 @@ class SPSModel(nn.Module):
         super().__init__()
         if cfg.dist_feature and cfg.unet.in_channels != 2:
             raise ValueError("dist_feature needs in_channels=2")
+        if cfg.dist_feature and cfg.unet.sp_axis is not None:
+            raise ValueError("dist_feature under spatial sharding needs a sliced scatter; "
+                             "not implemented (as in sps_tpu)")
         self.cfg = cfg
         self.MinkUNet = MinkUNet(cfg.unet, generator)
 
@@ -120,7 +128,10 @@ class SPSModel(nn.Module):
         map bit) it builds the pyramid from it; otherwise levels give a
         prebuilt pyramid; p2v/t_idx/valid go with grid and levels.
         point_dist: (N,) distance to the map per point (the dist_feature
-        input; 0 when None)."""
+        input; 0 when None). Under spatial sharding (cfg.unet.sp_axis) the
+        replicated pyramid is sliced to this rank's blocks, and the UNet's
+        output is all-gathered before devoxelizing: every rank returns the
+        same scores, and the flags include ghost overflow."""
         cfg = self.cfg
         if pb is not None:
             levels, p2v, overflow = build_pyramid(pb, cfg)
@@ -131,6 +142,13 @@ class SPSModel(nn.Module):
             levels, overflow = build_levels_from_grid(grid, cfg)
         else:
             overflow = torch.stack([lv.grid.overflow for lv in levels])
+        sp = cfg.unet.sp_axis
+        if sp is not None:
+            levels = sp_mod.slice_levels(levels, sp, ghost_frac=cfg.unet.sp_ghost_frac)
+            # Ghost overflow is a rank's own: OR the flags over the axis so
+            # that every rank reports it.
+            overflow = comm.pmax(torch.stack([lv.grid.overflow for lv in levels]).to(torch.int32),
+                                 sp) > 0
         occ0 = levels[0].grid.occ
         if cfg.dist_feature:
             feats0 = self._dist_feats(occ0, p2v, t_idx, valid, point_dist)
@@ -139,6 +157,8 @@ class SPSModel(nn.Module):
             feats0 = (0.5 * occ0.repeat_interleave(cfg.unet.in_channels, dim=-1)).to(
                 cfg.unet.dtype)
         out = self.MinkUNet(feats0, levels)
+        if sp is not None:
+            out = comm.all_gather(out, sp)
         per_point = vox.devoxelize_flat(
             out, p2v, t_idx, num_time=cfg.unet.num_time, channels=cfg.unet.out_channels
         )[:, 0].float()

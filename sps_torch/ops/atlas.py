@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from sps_torch.ops import brick as bk
+from sps_torch.ops.sparse_conv import take_rows
 from sps_torch.ops.voxelize import EMPTY, PAD_COORD, int_table
 
 
@@ -249,7 +250,10 @@ class RowLevel:
     Index domains: nbr27[k, v] -> row in this level; child[k, c] -> row in
     the finer level, or flat brick slot (brick_row * bs^3 + local) if the
     finer level is brick-form; parent[v] -> row in the coarser level (with
-    parity[v])."""
+    parity[v]). `aliased` marks the rows of alias_row_levels (row i of level
+    li is brick i of level li - 3), the only row form refresh_occupancy
+    takes. The ghost_* lists are set by parallel/spatial.py's ghost mode
+    (see brick.BrickLevel)."""
 
     grid: RowGrid
     nbr27: torch.Tensor  # (27, V)
@@ -258,6 +262,10 @@ class RowLevel:
     child: torch.Tensor | None = None  # (8, V)
     parent: torch.Tensor | None = None  # (V,)
     parity: torch.Tensor | None = None  # (V,)
+    ghost_self: torch.Tensor | None = None  # (G,) for nbr27
+    ghost_child: torch.Tensor | None = None  # (G,) for child
+    ghost_parent: torch.Tensor | None = None  # (G,) for parent
+    aliased: bool = False
 
     def _replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -328,6 +336,7 @@ def alias_row_levels(levels: list, num_levels: int) -> list:
                 child=child,
                 parent=None if last else src.parent,
                 parity=parity,
+                aliased=True,
             )
         )
 
@@ -347,6 +356,121 @@ def alias_row_levels(levels: list, num_levels: int) -> list:
     return out
 
 
+def hybridize_levels(levels: list, row_from: int, row_caps: tuple) -> list:
+    """Convert levels[row_from:] of a brick pyramid to RowLevels (any brick
+    side), wiring the strided maps across the representation boundary.
+
+    Each row level compacts the level's occupied (brick, voxel) slots into
+    at most row_caps[li] rows (overflow OR'd into the level's flag); its
+    27-neighbour table resolves through the brick 27-table (a voxel offset
+    of +-1 crosses at most one brick face per axis) and the slot -> row map.
+    Returns [BrickLevel, ..., RowLevel, ...]; the boundary brick level
+    (row_from - 1) gains `parent_rows` (Bf, bs/2, bs/2, bs/2), the coarse
+    row ids of its parent-voxel block, for its transpose conv."""
+    n = len(levels)
+    assert 1 <= row_from < n
+    out: list = list(levels)
+    dev = levels[0].nbr27.device
+    offs = int_table(bk.OFFS27, dev)  # (27, 3)
+    rowmaps: dict = {}
+    rowlvls: dict = {}
+
+    for li in range(row_from, n):
+        bl = levels[li]
+        occ_b = bl.grid.occ
+        bcap, bs = occ_b.shape[0], occ_b.shape[1]
+        bvol = bs**3
+        s = bcap * bvol
+        capacity = row_caps[li]
+        occ_flat = occ_b.reshape(s, occ_b.shape[-1])
+        rowmap, slot_of_row, num, overflow = _row_compact(occ_flat.amax(dim=-1), capacity)
+        brick_of_row = slot_of_row // bvol
+        lflat_of_row = slot_of_row % bvol
+        valid_rows = torch.arange(capacity, device=dev) < num
+        occ_rows = take_rows(occ_flat, slot_of_row) * valid_rows[:, None].to(occ_flat.dtype)
+        lx = lflat_of_row // (bs * bs)
+        ly = (lflat_of_row // bs) % bs
+        lz = lflat_of_row % bs
+        # All 27 offsets through two grouped gathers: the brick table, then
+        # the slot -> row map.
+        n3 = torch.stack([lx, ly, lz])[None, :, :] + offs[:, :, None]  # (27, 3, cap)
+        c3 = torch.clamp(n3, -1, bs) // bs
+        kidx = ((c3[:, 0] + 1) * 3 + (c3[:, 1] + 1)) * 3 + (c3[:, 2] + 1)
+        bidx = (kidx * bcap + brick_of_row[None, :]).reshape(-1)
+        nbrick = bl.nbr27.reshape(-1)[bidx.long()].reshape(27, capacity)
+        nlm = n3 & (bs - 1)
+        nl = (nlm[:, 0] * bs + nlm[:, 1]) * bs + nlm[:, 2]
+        slot = torch.where(nbrick >= 0, nbrick * bvol + nl, s)
+        nbr27 = rowmap[torch.clamp_max(slot, s).reshape(-1).long()].reshape(27, capacity)
+        nbr27 = torch.where(valid_rows[None, :], nbr27, EMPTY)
+        child = _hybrid_child(bl, levels[li - 1], brick_of_row, lx, ly, lz, bs,
+                              rowmaps.get(li - 1), valid_rows)
+        rowlvls[li] = RowLevel(
+            grid=RowGrid(occ=occ_rows, num_rows=num, overflow=bl.grid.overflow | overflow),
+            nbr27=nbr27, brick_of_row=brick_of_row, lflat_of_row=lflat_of_row, child=child)
+        rowmaps[li] = rowmap
+
+    # parent / parity links (fine row level -> coarse row level): fine voxel
+    # u = bs * b + l sits under parent voxel floor(u / 2), in brick parent[b]
+    # at local (bs/2) * oct + (l >> 1).
+    for li in range(row_from, n - 1):
+        rl, bl = rowlvls[li], levels[li]
+        bs = bl.grid.occ.shape[1]
+        hs = bs // 2
+        b = rl.brick_of_row.clamp(min=0).long()
+        pbrick, octf = bl.parent[b], bl.oct[b]
+        lx = rl.lflat_of_row // (bs * bs)
+        ly = (rl.lflat_of_row // bs) % bs
+        lz = rl.lflat_of_row % bs
+        pl = ((octf[:, 0] * hs + (lx >> 1)) * bs + octf[:, 1] * hs + (ly >> 1)) * bs + (
+            octf[:, 2] * hs + (lz >> 1))
+        cs = levels[li + 1].grid.occ.shape[0] * bs**3
+        pslot = torch.where(pbrick >= 0, pbrick * bs**3 + pl, cs)
+        parity = ((lx & 1) * 2 + (ly & 1)) * 2 + (lz & 1)
+        rowlvls[li] = rl._replace(parent=rowmaps[li + 1][torch.clamp_max(pslot, cs).long()],
+                                  parity=parity)
+
+    # Boundary: coarse row ids of each fine brick's (bs/2)^3 parent-voxel block.
+    fb = levels[row_from - 1]
+    bs = fb.grid.occ.shape[1]
+    hs = bs // 2
+    cs = levels[row_from].grid.occ.shape[0] * bs**3
+    ax = torch.arange(hs, dtype=torch.int32, device=dev)
+    plx = fb.oct[:, 0, None, None, None] * hs + ax[None, :, None, None]
+    ply = fb.oct[:, 1, None, None, None] * hs + ax[None, None, :, None]
+    plz = fb.oct[:, 2, None, None, None] * hs + ax[None, None, None, :]
+    pl = (plx * bs + ply) * bs + plz  # (Bf, hs, hs, hs)
+    pbrick = fb.parent[:, None, None, None]
+    pslot = torch.where(pbrick >= 0, pbrick * bs**3 + pl, cs)
+    out[row_from - 1] = fb._replace(parent_rows=rowmaps[row_from][torch.clamp_max(pslot, cs).long()])
+    for li in range(row_from, n):
+        out[li] = rowlvls[li]
+    return out
+
+
+def _hybrid_child(bl, fine_bl, brick_of_row, lx, ly, lz, bs: int, fine_rowmap, valid_rows):
+    """(8, V) down-conv sources of a row level: fine row ids where the finer
+    level is rows (fine_rowmap given), else flat fine brick slots."""
+    bcap = bl.grid.occ.shape[0]
+    bvol = bs**3
+    fs = fine_bl.grid.occ.shape[0] * bvol
+    cap = brick_of_row.shape[0]
+    # All 8 octants through two grouped gathers: the child table, then the rowmap.
+    octs = int_table(bk.OCT_OFFSETS, brick_of_row.device)  # (8, 3)
+    f3 = 2 * torch.stack([lx, ly, lz])[None, :, :] + octs[:, :, None]  # (8, 3, cap)
+    kflat = ((f3[:, 0] // bs) * 2 + (f3[:, 1] // bs)) * 2 + (f3[:, 2] // bs)
+    cidx = (kflat * bcap + brick_of_row[None, :]).reshape(-1)
+    fbrick = bl.child.reshape(-1)[cidx.long()].reshape(8, cap)
+    fm = f3 & (bs - 1)
+    fl = (fm[:, 0] * bs + fm[:, 1]) * bs + fm[:, 2]
+    fslot = torch.where(fbrick >= 0, fbrick * bvol + fl, fs)
+    if fine_rowmap is not None:
+        outs = fine_rowmap[torch.clamp_max(fslot, fs).reshape(-1).long()].reshape(8, cap)
+    else:
+        outs = torch.where(fslot < fs, fslot, EMPTY)
+    return torch.where(valid_rows[None, :], outs, EMPTY)
+
+
 def refresh_occupancy(levels: list, occ0: torch.Tensor) -> list:
     """New per-scan occupancy through a cached topology pyramid.
 
@@ -354,7 +478,11 @@ def refresh_occupancy(levels: list, occ0: torch.Tensor) -> list:
     only per-scan data, and phantom slots contribute exact zeros, so a
     refreshed pyramid scores like a rebuilt one whenever the cached set
     covers the scan. Brick levels re-derive occupancy via their child tables
-    (2^3 max-pool); aliased row levels as the slot-max of brick level li-3."""
+    (2^3 max-pool); aliased row levels as the slot-max of brick level li-3.
+    A hybridized pyramid's row levels (hybridize_levels) have no such
+    identity and raise: sps_tpu's shape assertion catches them only where
+    the capacities differ, and indexes them in the wrong row order where
+    they coincide."""
     out = list(levels)
     occs: list = [occ0]
     out[0] = levels[0]._replace(grid=levels[0].grid._replace(occ=occ0))
@@ -364,18 +492,13 @@ def refresh_occupancy(levels: list, occ0: torch.Tensor) -> list:
             o = bk.coarse_occ_from_children(occs[li - 1], lv.child)
             occs.append(o)
             out[li] = lv._replace(grid=lv.grid._replace(occ=o))
-        else:
-            k = li - 3  # alias_row_levels: side-8 identity
-            assert k >= 0 and occs[k] is not None, (
-                "refresh_occupancy supports brick pyramids with alias_row_levels row levels"
-            )
-            assert lv.grid.occ.shape[0] == occs[k].shape[0], (
-                f"row level {li} rows ({lv.grid.occ.shape[0]}) != brick level {k} "
-                f"bricks ({occs[k].shape[0]}): not the alias_row_levels identity"
-            )
-            o = occs[k].amax(dim=(1, 2, 3))
-            occs.append(None)
-            out[li] = lv._replace(grid=lv.grid._replace(occ=o))
+            continue
+        if not lv.aliased:
+            raise ValueError(f"refresh_occupancy: row level {li} is not an alias_row_levels "
+                             "level (a hybridized pyramid); rebuild the topology instead")
+        o = occs[li - 3].amax(dim=(1, 2, 3))
+        occs.append(None)
+        out[li] = lv._replace(grid=lv.grid._replace(occ=o))
     return out
 
 

@@ -52,8 +52,16 @@ class BrickLevel(NamedTuple):
     oct: torch.Tensor | None  # (B, 3) octant (bcoords & 1) per axis
     child: torch.Tensor | None  # (8, B) fine brick rows (OCT_OFFSETS order)
     # Coarse ROW ids of this level's (bs/2)^3 parent-voxel block, set on the
-    # fine level just below the brick->row boundary (atlas.alias_row_levels).
+    # fine level just below the brick->row boundary (atlas.alias_row_levels,
+    # atlas.hybridize_levels).
     parent_rows: torch.Tensor | None = None
+    # Spatial sharding, ghost mode (parallel/spatial.py): the global source
+    # rows this shard needs from other shards, per table. When set, the
+    # table (nbr27 / child / parent or parent_rows) holds [local | ghost]
+    # ids and the conv fetches the ghosts with one all-to-all.
+    ghost_self: torch.Tensor | None = None  # (G,) for nbr27
+    ghost_child: torch.Tensor | None = None  # (G,) for child (the finer level)
+    ghost_parent: torch.Tensor | None = None  # (G,) for parent / parent_rows
 
 
 def _assemble_octants(blocks: torch.Tensor) -> torch.Tensor:
@@ -235,11 +243,15 @@ def _halo_map(bs: int, pad: int, device):
     return _HALO_MAPS[key]
 
 
-def _halo_assemble(x, nbr27, pad, zaxis_scale):
+def _halo_assemble(x, nbr27, pad, zaxis_scale, center=None):
     """Halo assembly over (B, bs, bs, Z, ...) features laid out voxel-major
     (x, y, z, then TC channels). `zaxis_scale` is 1 for (B, bs, bs, bs, TC)
     and TC for the z-folded (B, bs, bs, bs*TC) layout; the output keeps the
-    input's layout.
+    input's layout. `center` (B', ...) in x's layout, when given, is the
+    centre slab of the B' = nbr27.shape[1] output bricks in place of the
+    rows that nbr27's centre row names (spatial sharding: x is the gather
+    source, the all-gathered level or local + ghost rows, and center the
+    local block).
 
     sps_tpu groups the 26 neighbour slabs into 3 gathers to suit the TPU;
     on the card each slice and copy is a kernel launch, so here every halo
@@ -264,6 +276,10 @@ def _halo_assemble(x, nbr27, pad, zaxis_scale):
         src = torch.cat([src, src.new_zeros((1, src.shape[1]))])
         parts.append(src[rows[dz]].reshape(bout, h, h, -1))
     out = torch.cat(parts, dim=-1)
+    if center is not None:
+        v = out.view(bout, h, h, h, -1)
+        v[:, pad : pad + bs, pad : pad + bs, pad : pad + bs] = center.reshape(
+            bout, bs, bs, bs, -1)
     return out.reshape((bout, h, h, h * zaxis_scale) + tuple(x.shape[4:]))
 
 
@@ -348,23 +364,26 @@ class _SymmetricHalo(torch.autograd.Function):
         return _halo_transpose(g, nbr27, ctx.pad, ctx.x_shape), None, None, None
 
 
-def _halo(x, nbr27, pad, zaxis_scale):
+def _halo(x, nbr27, pad, zaxis_scale, center=None):
     """sps_tpu's dispatch: the gather-transpose gradient when the output
-    bricks are the input's (feats.shape[0] == nbr27.shape[1]), else
-    autograd through the gathers."""
-    if torch.is_grad_enabled() and x.requires_grad and x.shape[0] == nbr27.shape[1]:
+    bricks are the input's (feats.shape[0] == nbr27.shape[1], no center),
+    else autograd through the gathers."""
+    if (center is None and torch.is_grad_enabled() and x.requires_grad
+            and x.shape[0] == nbr27.shape[1]):
         return _SymmetricHalo.apply(x, nbr27, pad, zaxis_scale)
-    return _halo_assemble(x, nbr27, pad, zaxis_scale)
+    return _halo_assemble(x, nbr27, pad, zaxis_scale, center)
 
 
-def halo(feats: torch.Tensor, nbr27: torch.Tensor, pad: int) -> torch.Tensor:
-    """(B, bs, bs, bs, C) -> (B, bs+2p, bs+2p, bs+2p, C): 26-neighbour assembly."""
-    return _halo(feats, nbr27, pad, 1)
+def halo(feats: torch.Tensor, nbr27: torch.Tensor, pad: int, center=None) -> torch.Tensor:
+    """(B, bs, bs, bs, C) -> (B', bs+2p, bs+2p, bs+2p, C): 26-neighbour
+    assembly, B' = nbr27.shape[1]; `center` as in _halo_assemble."""
+    return _halo(feats, nbr27, pad, 1, center)
 
 
-def halo_z(zfeats: torch.Tensor, nbr27: torch.Tensor, pad: int, tc: int) -> torch.Tensor:
-    """z-folded halo: (B, bs, bs, bs*TC) -> (B, bs+2p, bs+2p, (bs+2p)*TC)."""
-    return _halo(zfeats, nbr27, pad, tc)
+def halo_z(zfeats: torch.Tensor, nbr27: torch.Tensor, pad: int, tc: int,
+           center=None) -> torch.Tensor:
+    """z-folded halo: (B, bs, bs, bs*TC) -> (B', bs+2p, bs+2p, (bs+2p)*TC)."""
+    return _halo(zfeats, nbr27, pad, tc, center)
 
 
 def fold_z(feats: torch.Tensor) -> torch.Tensor:
@@ -399,16 +418,18 @@ def mask_bricks(feats: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     return mask_slots(feats, occ)
 
 
-def brick_conv_zband(zfeats, nbr27, w_dense, occz, *, mask_out: bool = True):
+def brick_conv_zband(zfeats, nbr27, w_dense, occz, *, mask_out: bool = True, center=None):
     """Stride-1 sparse conv in the z-folded layout: the folded halo, then one
     2-D conv whose channel axes carry z (the zband_conv kernel).
 
-    zfeats (B, bs, bs, bs*TCin); occz (B, bs, bs, bs*T). Returns (B, bs, bs, bs*TCout)."""
+    zfeats (B, bs, bs, bs*TCin); occz (B', bs, bs, bs*T). Returns (B', bs,
+    bs, bs*TCout), B' = nbr27.shape[1]. `center`: the local output block of
+    zfeats under spatial sharding (see halo)."""
     k = w_dense.shape[0]
     pad = k // 2
     bs = zfeats.shape[1]
     tcin = zfeats.shape[-1] // bs
-    h = halo_z(zfeats, nbr27, pad, tcin)
+    h = halo_z(zfeats, nbr27, pad, tcin, center)
     wz = pack_zband_kernel(w_dense, bs, pad)
     out = zc.zband_conv(h, wz, k, bs)
     return mask_bricks(out, occz) if mask_out else out
@@ -489,9 +510,11 @@ def _region_spans(d: int, bs: int):
     return slice(0, 1), slice(2, 3), slice(bs - 1, bs), 0
 
 
-def brick_conv(feats, nbr27, w_dense, occ, mode: str = "halo", *, mask_out: bool = True):
+def brick_conv(feats, nbr27, w_dense, occ, mode: str = "halo", *, mask_out: bool = True,
+               center=None):
     """Stride-1 sparse conv over bricks. w_dense: (k, k, k, T*Cin, T*Cout)
-    in x-slowest offset order.
+    in x-slowest offset order. `center`: under spatial sharding, the local
+    output block of feats (feats is then the gather source; see halo).
 
     mode "halo": a dense VALID 3-D conv over the assembled halo. mode
     "region" (3^3 kernels): a SAME conv within each brick plus one small
@@ -501,11 +524,11 @@ def brick_conv(feats, nbr27, w_dense, occ, mode: str = "halo", *, mask_out: bool
     the region sums are taken in f32 and cast once."""
     k = w_dense.shape[0]
     if k != 3 or mode == "halo":
-        h = halo(feats, nbr27, k // 2)
+        h = halo(feats, nbr27, k // 2, center)
         out = _conv3d_valid(h, w_dense).to(feats.dtype)
         return mask_bricks(out, occ) if mask_out else out
     bs = feats.shape[1]
-    out = _conv3d_same(feats, w_dense, 1).float()
+    out = _conv3d_same(feats if center is None else center, w_dense, 1).float()
     for kk, (dx, dy, dz) in enumerate(OFFS27):
         if (dx, dy, dz) == (0, 0, 0):
             continue
@@ -542,7 +565,7 @@ def quantize_weight(w_dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.transpose(-1, -2), s_w
 
 
-def brick_conv_int8(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
+def brick_conv_int8(feats, nbr27, w_dense, occ, *, mask_out: bool = True, center=None):
     """Stride-1 sparse 3^3 conv with int8 math (inference; sps_tpu's
     brick_conv_int8): quantize the activations per tensor and the weight
     per output channel, run the int8 conv with int32 sums on the codes,
@@ -550,8 +573,17 @@ def brick_conv_int8(feats, nbr27, w_dense, occ, *, mask_out: bool = True):
     form of the brick_conv_int8 kernel), and dequantize by s_in * s_w into
     feats.dtype.
 
-    feats (B, bs, bs, bs, TCin); w_dense (3, 3, 3, TCin, TCout), quantized
-    from its f32 values."""
+    feats (Bq, bs, bs, bs, TCin); w_dense (3, 3, 3, TCin, TCout), quantized
+    from its f32 values; one output brick per column of nbr27. Under spatial
+    sharding feats is the gather source and `center` the local output block:
+    the scale is the abs-max of the source, as sps_tpu's (with ghosts, a
+    shard's own), and the kernel reads each brick's centre through
+    nbr27[13], which names the block's own row in the source (its global row
+    under an all-gather, its local row under ghosts), so the codes of
+    `center` are those rows' codes and are not gathered apart."""
+    if center is not None and center.shape[0] != nbr27.shape[1]:
+        raise ValueError(f"brick_conv_int8: center has {center.shape[0]} bricks, nbr27 "
+                         f"{nbr27.shape[1]} columns")
     q, s_in = quantize_act(feats)
     w8, s_w = quantize_weight(w_dense)
     out = _int8_gather(q, nbr27, w8, s_in * s_w, feats.dtype)

@@ -98,3 +98,17 @@ def masked_batch_stats(feats: torch.Tensor, occ: torch.Tensor) -> tuple[torch.Te
     mean = (x * w).sum(dim=(0, 1)) / cnt
     var = (w * (x - mean) ** 2).sum(dim=(0, 1)) / cnt
     return mean, var
+
+
+def masked_batch_moments(feats: torch.Tensor, occ: torch.Tensor):
+    """Per-channel raw moments over real (voxel, t) slots: (sum, sum of
+    squares, count), additive across shards, so a spatially sharded
+    BatchNorm sums them over the sp axis and forms mean = s1 / n and var =
+    s2 / n - mean^2 (sps_tpu's one-pass form under sp)."""
+    v, tc = feats.shape
+    t = occ.shape[1]
+    x = feats.reshape(v, t, tc // t)
+    w = occ.to(feats.dtype)[:, :, None]
+    s1 = (x * w).sum(dim=(0, 1))
+    s2 = (x * x * w).sum(dim=(0, 1))
+    return s1, s2, occ.sum(dtype=torch.float32).to(feats.dtype)

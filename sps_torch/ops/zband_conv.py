@@ -62,9 +62,10 @@ ROUTE_SOURCES = {"wmma": CUDA_SOURCES[0], "wgmma": CUDA_SOURCES[1],
                  "wgmma_k5": CUDA_SOURCES[2]}
 
 # One count per kernel launch; incremented only where the kernel launches,
-# in total and per route.
+# in total, per route, and per (kernel, route, hz shape, wz shape).
 LAUNCHES = {"zband_conv": 0, "zband_conv_fused": 0}
 ROUTE_LAUNCHES = {name: dict.fromkeys(ROUTES, 0) for name in LAUNCHES}
+SHAPE_LAUNCHES: dict[tuple, int] = {}
 
 # The wgmma route's tile (zband_conv_sm90.cu): channels per stage, columns
 # per block, bricks per block, threads, stages, the channel multiple it
@@ -146,10 +147,11 @@ def build() -> None:
 
 
 def reset_launches() -> None:
-    """Set every launch count, in total and per route, to 0."""
+    """Set every launch count, in total, per route and per shape, to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         ROUTE_LAUNCHES[name] = dict.fromkeys(ROUTES, 0)
+    SHAPE_LAUNCHES.clear()
 
 
 def route(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int, *operands) -> str:
@@ -305,6 +307,8 @@ def _launch(name: str, path: str, hz: torch.Tensor, *args):
         out = getattr(torch.ops.sps_torch, name)(hz, *args, ROUTES[path], stream)
     LAUNCHES[name] += 1
     ROUTE_LAUNCHES[name][path] += 1
+    key = (name, path, tuple(hz.shape), tuple(args[0].shape))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     return out
 
 

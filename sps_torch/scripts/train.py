@@ -7,6 +7,9 @@
 Writes <ckpt-dir>/best.pt and <ckpt-dir>/last.pt (sps_torch/utils/checkpoint.py;
 `python -m sps_torch.scripts.predict -w <ckpt-dir>/best.pt` evaluates one)
 and <log-dir>/<EXPERIMENT.ID>.jsonl. Trains on the card unless --device cpu.
+Data-parallel over N cards: `--devices N` spawns the ranks, or
+
+    torchrun --standalone --nproc_per_node N -m sps_torch.scripts.train -c ... --devices N
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="continue from <ckpt-dir>/last.pt (weights and optimizer state)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="data-parallel training over N cards (not ported yet)")
+                    help="data-parallel training over N cards (N CPU processes with "
+                         "--device cpu): spawned here, or one rank a process under torchrun")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' for the CPU")
     args = ap.parse_args(argv)
     cfg = cfg_mod.load(args.config, data_root=args.data)

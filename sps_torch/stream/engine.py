@@ -17,6 +17,12 @@ refresh the cached pyramid's occupancy instead. Points whose brick the
 cache does not cover score sigmoid(0) = 0.5 and are counted in
 stats["topo_miss_points"].
 
+With `mesh` (parallel/mesh.py, an "sp" axis) each scan runs spatially
+sharded (parallel/spatial.py): every rank of the axis calls the filter with
+the same inputs, builds the topology replicated, computes its block of
+every conv and returns the same scores; topology reuse is off, as in
+sps_tpu.
+
 Everything per scan stays on the device: capacities are static, overflow
 is data. On the atlas engine no value is read back to the host; the hash
 engines' probe loops test for pending rows on the host (ops/hash.py). Profiler ranges
@@ -38,6 +44,7 @@ from sps_torch.ops import atlas as atl
 from sps_torch.ops import brick as bk
 from sps_torch.ops import hash as vhash
 from sps_torch.ops import voxelize as vox
+from sps_torch.parallel import spatial as sp_mod
 from sps_torch.structs import resolve_device
 from sps_torch.utils import metrics as met
 from sps_torch.utils.geometry import transform_points
@@ -104,20 +111,28 @@ def build_map_bricks(map_points: np.ndarray, voxel_size: float, capacity: int | 
 class StreamingFilter:
     """Resident map + model; one call scores one scan (n, 3) or, on the
     atlas engine, a batch (NB, n, 3). Runs on the card unless device="cpu"
-    is passed."""
+    is passed. mesh: spread each scan's brick / row axis over the mesh's
+    `sp_axis` ranks, with the ghost exchange when sp_ghost_frac > 0."""
 
     def __init__(self, cfg: Config, state_dict: dict, map_points: np.ndarray,
-                 batch: int = 1, device=None):
+                 batch: int = 1, device=None, mesh=None, sp_axis: str = "sp",
+                 sp_ghost_frac: float = 0.0):
         self.device = resolve_device(device)
         self.engine = cfg.tpu.engine
         if self.engine != "atlas" and batch != 1:
             raise ValueError("batches of more than one scan run on the atlas engine only")
         self.cfg = cfg
         self.sps_cfg = cfg.sps_config(batch_size=batch)
+        if mesh is not None:
+            if sp_axis not in mesh.axis_names:
+                raise ValueError(f"the mesh has no {sp_axis!r} axis: {mesh.axis_names}")
+            if self.sps_cfg.dist_feature:
+                raise ValueError("dist_feature under spatial sharding is not implemented")
+            self.sps_cfg = sp_mod.sp_config(self.sps_cfg, sp_axis, ghost_frac=sp_ghost_frac)
         self.model = SPSModel(self.sps_cfg)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
-        self.topo_every = cfg.tpu.topo_every if self.engine == "atlas" else 0
+        self.topo_every = cfg.tpu.topo_every if self.engine == "atlas" and mesh is None else 0
         self._topo_cache = None
         self._dispatch_i = 0
         map_points = np.asarray(map_points)[:, :3]

@@ -18,8 +18,13 @@ A step (`train_step`) is the submap join, the augmentation, the forward in
 train mode, the backward and the update, all on the device; it returns its
 metrics as 0-d device tensors, which the loop reads on logged steps only.
 The split lives on the device when it takes less than DEVICE_SPLIT_BYTES.
-Training runs on the card unless device="cpu" is passed. Data-parallel
-training (devices > 1) is not ported yet.
+Training runs on the card unless device="cpu" is passed.
+
+Data-parallel training (fit(devices=N), parallel/mesh.py): N ranks, one a
+card (NCCL) or N CPU processes (gloo), launched by torchrun or spawned by
+fit; each rank trains on its block of every batch, and grad_step averages
+the gradients, the BN running statistics and the metrics over "dp", so the
+replicated parameters stay equal.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from sps_torch import register as reg
 from sps_torch.config import Config
 from sps_torch.data.blt import BLTDataModule, prefetched
 from sps_torch.models.spsnet import SPSModel
+from sps_torch.parallel import comm
+from sps_torch.parallel import spatial as sp_mod
 from sps_torch.structs import resolve_device
 from sps_torch.utils import checkpoint as ckpt
 from sps_torch.utils.metrics import masked_mse, masked_r2
@@ -58,11 +65,17 @@ class TrainState:
     step: int = 0
 
 
-def create_state(cfg: Config, seed: int, steps_per_epoch: int, device=None) -> TrainState:
+def create_state(cfg: Config, seed: int, steps_per_epoch: int, device=None,
+                 sp_axis: str | None = None) -> TrainState:
     """A seeded model (He-normal kernels, BN statistics at 0 / 1, as a flax
-    init), Adam and the staircase schedule, on `device` (default the card)."""
+    init), Adam and the staircase schedule, on `device` (default the card).
+    sp_axis: the model runs spatially sharded over that mesh axis (the same
+    parameters)."""
     dev = resolve_device(device)
-    model = SPSModel(cfg.sps_config(), generator=torch.Generator().manual_seed(seed)).to(dev)
+    scfg = cfg.sps_config()
+    if sp_axis is not None:
+        scfg = sp_mod.sp_config(scfg, sp_axis)
+    model = SPSModel(scfg, generator=torch.Generator().manual_seed(seed)).to(dev)
     model.train()
     tc = cfg.train
     opt = torch.optim.Adam(model.parameters(), lr=tc.lr, betas=(0.9, 0.999), eps=1e-8,
@@ -90,28 +103,77 @@ def loss_of(scores, label, scan_mask, cfg: Config):
     return masked_mse(scores, label, scan_mask)
 
 
-def train_step(state: TrainState, batch: dict, map_points, rng=None, map_vm=None, *,
-               cfg: Config, augment: bool) -> dict:
-    """One optimizer step (sps_tpu's grad_step and train_step): the submap
-    join, the augmentation (rng, a torch.Generator, when `augment`), the
-    forward in train mode, the loss, the backward and the Adam update. The
-    step's gradients stay in the parameters' .grad. Returns the metrics
-    loss, r2, overflow and submap_overflow as 0-d device tensors."""
+def _all_reduce_flat(tensors, reduce) -> None:
+    """reduce(one flat f32 buffer of every tensor), copied back in place."""
+    flat = reduce(torch.cat([t.reshape(-1).float() for t in tensors]))
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i : i + t.numel()].view_as(t))
+        i += t.numel()
+
+
+def grad_step(state: TrainState, batch: dict, map_points, rng=None, map_vm=None, *,
+              cfg: Config, augment: bool, axis_name: str | None = None,
+              sp_axis: str | None = None) -> dict:
+    """One optimizer step (sps_tpu's grad_step): the submap join, the
+    augmentation (rng, a torch.Generator, when `augment`), the forward in
+    train mode, the loss, the backward and the Adam update. The step's
+    gradients stay in the parameters' .grad. Returns the metrics loss, r2,
+    overflow and submap_overflow as 0-d device tensors.
+
+    axis_name (data parallel): the gradients, the BN running statistics and
+    the float metrics are averaged over that mesh axis and the flags OR'd,
+    each in one flat all-reduce, so every rank applies the same update.
+    sp_axis (spatial): the state's model must run sharded over it
+    (create_state(..., sp_axis)); the weight gradients are summed over it
+    first. As in sps_tpu, the loss of the replicated scores reaches each
+    rank's block through the all-gather's transpose, a reduce-scatter of n
+    equal cotangents, so the summed gradient is n_sp times the unsharded
+    one (the BN statistics and the loss are not scaled)."""
     pb, aux = pipeline.assemble_batch(batch["xyz"], batch["label"], batch["valid"], map_points,
                                       cfg, rng if augment else None, map_vm=map_vm)
     model = state.model
+    if model.cfg.unet.sp_axis != sp_axis:
+        raise ValueError(f"the model runs sharded over {model.cfg.unet.sp_axis!r}, the step "
+                         f"over {sp_axis!r}: build the state with create_state(..., sp_axis)")
     model.train()
     state.optimizer.zero_grad(set_to_none=True)
     scores, maux = model(pb)
     scan_mask = pb.valid & (pb.t == pipeline.SCAN_T)
     loss = loss_of(scores, pb.label, scan_mask, cfg)
     loss.backward()
+    scores = scores.detach()
+    metrics = {"loss": loss.detach(), "r2": masked_r2(scores, pb.label, scan_mask),
+               "overflow": maux["overflow"].any(), "submap_overflow": aux["submap_overflow"]}
+    if sp_axis is not None or axis_name is not None:
+        with torch.no_grad():
+            params = list(model.parameters())
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if sp_axis is not None:
+                _all_reduce_flat(grads, lambda x: comm.psum(x, sp_axis))
+            if axis_name is not None:
+                _all_reduce_flat(grads, lambda x: comm.pmean(x, axis_name))
+                _all_reduce_flat(list(model.buffers()), lambda x: comm.pmean(x, axis_name))
+                names = sorted(metrics)
+                fl = [k for k in names if metrics[k].dtype != torch.bool]
+                vals = comm.pmean(torch.stack([metrics[k].float() for k in fl]), axis_name)
+                flags = comm.pmax(torch.stack([metrics[k].to(torch.int32) for k in names
+                                               if k not in fl]), axis_name) > 0
+                metrics.update(zip(fl, vals))
+                metrics.update(zip([k for k in names if k not in fl], flags))
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    scores = scores.detach()
-    return {"loss": loss.detach(), "r2": masked_r2(scores, pb.label, scan_mask),
-            "overflow": maux["overflow"].any(), "submap_overflow": aux["submap_overflow"]}
+    return metrics
+
+
+def train_step(state: TrainState, batch: dict, map_points, rng=None, map_vm=None, *,
+               cfg: Config, augment: bool) -> dict:
+    """One optimizer step on one device (grad_step without mesh axes)."""
+    return grad_step(state, batch, map_points, rng, map_vm, cfg=cfg, augment=augment)
 
 
 def eval_step(state: TrainState, batch: dict, map_points, map_vm=None, *, cfg: Config) -> dict:
@@ -180,10 +242,64 @@ def fit(cfg: Config, log_dir: str = "./tb_logs", ckpt_dir: str = "./checkpoints"
     a ragged tail and pads a split smaller than a batch. resume continues
     from <ckpt_dir>/last.pt: weights, BN statistics, optimizer and schedule
     state, step and epoch; a save that interrupted an epoch (max_steps)
-    replays that epoch. Runs on the card unless device="cpu"."""
+    replays that epoch. Runs on the card unless device="cpu".
+
+    devices > 1 trains data-parallel over that many ranks: cards (NCCL, one
+    a rank) or, with device="cpu", CPU processes (gloo). batch_size must be
+    divisible by devices, and fewer devices than asked raise. Under torchrun
+    (RANK and WORLD_SIZE set) this process is one rank of `devices`;
+    otherwise fit spawns the ranks and returns rank 0's path. Rank r draws
+    its augmentation from seed + r; rank 0 logs and writes checkpoints."""
     if devices > 1:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP module item 10)")
+        return _fit_dp(cfg, log_dir, ckpt_dir, max_steps, seed, resume, devices, device)
+    return _fit(cfg, log_dir, ckpt_dir, max_steps, seed, resume, device)
+
+
+def _fit_dp(cfg, log_dir, ckpt_dir, max_steps, seed, resume, devices, device):
+    """fit's data-parallel launch (sps_tpu's contract: the batch divides over
+    the devices, and a smaller mesh is an error, not a silent change)."""
+    from sps_torch.parallel import launch
+
+    if cfg.train.batch_size % devices:
+        raise ValueError(f"batch_size {cfg.train.batch_size} not divisible by devices {devices}")
+    if cfg.dist_feature:
+        raise ValueError("dist_feature under dp training is not plumbed yet (as in sps_tpu); "
+                         "train on one device or turn MODEL.DIST_FEATURE off")
+    cpu = device is not None and torch.device(device).type == "cpu"
+    have = (os.cpu_count() or 1) if cpu else torch.cuda.device_count()
+    if devices > have:
+        raise ValueError(f"--devices {devices} > {have} available "
+                         f"({'CPU cores' if cpu else 'cards'}); a smaller mesh would silently "
+                         "change parallelism")
+    args = (cfg, log_dir, ckpt_dir, max_steps, seed, resume, cpu)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if world != devices:
+            raise ValueError(f"torchrun started {world} ranks for --devices {devices}")
+        torch.distributed.init_process_group("gloo" if cpu else "nccl")
+        try:
+            return _fit_rank(int(os.environ["RANK"]), world, *args)
+        finally:
+            torch.distributed.destroy_process_group()
+    return launch.spawn(_fit_rank, devices, *args, backend="gloo" if cpu else "nccl",
+                        timeout=7 * 24 * 3600.0)[0]
+
+
+def _fit_rank(rank, world, cfg, log_dir, ckpt_dir, max_steps, seed, resume, cpu):
+    """One rank of data-parallel fit."""
+    from sps_torch.parallel import mesh as pmesh
+
+    if not cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+    mesh = pmesh.make_mesh(world, "dp")
+    return _fit(cfg, log_dir, ckpt_dir, max_steps, seed, resume, "cpu" if cpu else None,
+                mesh=mesh, rank=rank)
+
+
+def _fit(cfg, log_dir, ckpt_dir, max_steps, seed, resume, device, mesh=None, rank=0):
+    """fit's loop; with a dp mesh, this rank's part of it."""
+    from sps_torch.parallel import mesh as pmesh
+
     dev = resolve_device(device)
     data = BLTDataModule(cfg)
     map_points = torch.as_tensor(data.map_points, device=dev)
@@ -194,8 +310,18 @@ def fit(cfg: Config, log_dir: str = "./tb_logs", ckpt_dir: str = "./checkpoints"
     bsz = cfg.train.batch_size
     steps_per_epoch = max(1, len(data.train) // bsz)
     state = create_state(cfg, seed, steps_per_epoch, dev)
-    rng = torch.Generator(device=dev).manual_seed(seed)
-    logger = JSONLLogger(log_dir, cfg.experiment_id)
+    rng = torch.Generator(device=dev).manual_seed(seed + rank)
+    main = rank == 0
+    logger = JSONLLogger(log_dir, cfg.experiment_id) if main else None
+    if mesh is None:
+        def step_fn(hb):
+            return train_step(state, hb, map_points, rng, map_vm, cfg=cfg,
+                              augment=cfg.train.augmentation)
+    else:
+        dp_step = pmesh.make_dp_train_step(cfg, mesh, augment=cfg.train.augmentation)
+
+        def step_fn(hb):
+            return dp_step(state, hb, map_points, rng, map_vm)
 
     ns = cfg.tpu.scan_points
     device_data = (len(data.train) + len(data.val)) * ns * 17 < DEVICE_SPLIT_BYTES
@@ -226,15 +352,17 @@ def fit(cfg: Config, log_dir: str = "./tb_logs", ckpt_dir: str = "./checkpoints"
         # (max_steps) save re-enters the interrupted epoch, whose batches
         # replay in the same seeded order.
         start_epoch = int(out["epoch"]) + (0 if mid_epoch else 1)
-        print(f"resumed from {last_path}: epoch {start_epoch}, step {state.step}, "
-              f"best_val {best_val:.4f}"
-              + (" (mid-epoch save: interrupted epoch replays)" if mid_epoch else ""),
-              flush=True)
+        if main:
+            print(f"resumed from {last_path}: epoch {start_epoch}, step {state.step}, "
+                  f"best_val {best_val:.4f}"
+                  + (" (mid-epoch save: interrupted epoch replays)" if mid_epoch else ""),
+                  flush=True)
 
     def save_last(epoch, mid_epoch=False):
-        ckpt.save(last_path, state.model, cfg, step=state.step, optimizer=state.optimizer,
-                  scheduler=state.scheduler, epoch=epoch, full=True, best_val=best_val,
-                  mid_epoch=mid_epoch)
+        if main:
+            ckpt.save(last_path, state.model, cfg, step=state.step, optimizer=state.optimizer,
+                      scheduler=state.scheduler, epoch=epoch, full=True, best_val=best_val,
+                      mid_epoch=mid_epoch)
 
     def epoch_batches(epoch):
         if device_data:
@@ -272,10 +400,9 @@ def fit(cfg: Config, log_dir: str = "./tb_logs", ckpt_dir: str = "./checkpoints"
     first = state.step
     for epoch in range(start_epoch, cfg.train.max_epoch):
         for hb in epoch_batches(epoch):
-            m = train_step(state, hb, map_points, rng, map_vm, cfg=cfg,
-                           augment=cfg.train.augmentation)
+            m = step_fn(hb)
             step = state.step
-            if step % 10 == 1 or max_steps:
+            if main and (step % 10 == 1 or max_steps):
                 mm = {k: float(v) for k, v in m.items()}
                 logger.log(step, epoch=epoch, **{f"train_{k}": v for k, v in mm.items()})
                 print(f"epoch {epoch} step {step} loss {mm['loss']:.4f} r2 {mm['r2']:.4f} "
@@ -286,10 +413,12 @@ def fit(cfg: Config, log_dir: str = "./tb_logs", ckpt_dir: str = "./checkpoints"
         vals = [eval_step(state, hb, map_points, map_vm, cfg=cfg) for hb in val_batches()]
         vloss = float(torch.stack([v["loss"] for v in vals]).mean())
         vr2 = float(torch.stack([v["r2"] for v in vals]).mean())
-        logger.log(state.step, epoch=epoch, val_loss=vloss, val_r2=vr2)
-        print(f"epoch {epoch} VAL loss {vloss:.4f} r2 {vr2:.4f}", flush=True)
+        if main:
+            logger.log(state.step, epoch=epoch, val_loss=vloss, val_r2=vr2)
+            print(f"epoch {epoch} VAL loss {vloss:.4f} r2 {vr2:.4f}", flush=True)
         if vloss < best_val:
             best_val = vloss
-            ckpt.save(best_path, state.model, cfg, step=state.step)
+            if main:
+                ckpt.save(best_path, state.model, cfg, step=state.step)
         save_last(epoch)
     return best_path

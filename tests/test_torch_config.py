@@ -1,9 +1,12 @@
 """The port's model configs default as sps_tpu's do: every field that
 sps_torch's SPSConfig, MinkUNetConfig and Capacities share with sps_tpu's
-has sps_tpu's default (a dtype compared by name), and the default engine
-(brick, conv_mode region) scores as sps_tpu's."""
+has sps_tpu's default (a dtype compared by name; MinkUNetConfig's sp_axis
+and sp_ghost_frac included), the sp / dp entry points' keyword defaults are
+sps_tpu's, and the default engine (brick, conv_mode region) scores as
+sps_tpu's."""
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -75,3 +78,42 @@ def test_default_engine_scores_as_sps_tpu():
     assert not bool(aux["overflow"].any()) and not bool(np.asarray(aux_j["overflow"]).any())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-4)
     assert bool((got[:64] > 0).all())
+
+
+def _sp_dp_pairs():
+    from sps_torch import train as ttrain
+    from sps_torch.parallel import mesh as tmesh
+    from sps_torch.parallel import spatial as tsp
+    from sps_torch.stream import engine as tengine
+    from sps_tpu import train as jtrain
+    from sps_tpu.parallel import mesh as jmesh
+    from sps_tpu.parallel import spatial as jsp
+    from sps_tpu.stream import engine as jengine
+
+    return {"StreamingFilter": (tengine.StreamingFilter.__init__, jengine.StreamingFilter.__init__),
+            "sp_config": (tsp.sp_config, jsp.sp_config),
+            "slice_levels": (tsp.slice_levels, jsp.slice_levels),
+            "make_mesh": (tmesh.make_mesh, jmesh.make_mesh),
+            "make_dp_train_step": (tmesh.make_dp_train_step, jmesh.make_dp_train_step),
+            "grad_step": (ttrain.grad_step, jtrain.grad_step),
+            "fit": (ttrain.fit, jtrain.fit)}
+
+
+@pytest.mark.parametrize("entry", ["StreamingFilter", "sp_config", "slice_levels", "make_mesh",
+                                   "make_dp_train_step", "grad_step", "fit"])
+def test_sp_dp_defaults_equal_sps_tpu(entry):
+    """Every keyword default the port's sp / dp entry point shares with
+    sps_tpu's (mesh, sp_axis "sp", sp_ghost_frac / ghost_frac 0, the "dp"
+    axis, augment, axis_name / sp_axis None, devices 1) is sps_tpu's."""
+    mine, theirs = (inspect.signature(f).parameters for f in _sp_dp_pairs()[entry])
+    empty = inspect.Parameter.empty
+    shared = [k for k, v in mine.items()
+              if k in theirs and v.default is not empty and theirs[k].default is not empty]
+    assert shared or entry == "make_dp_train_step"
+    for k in shared:
+        assert mine[k].default == theirs[k].default, (entry, k)
+    want = {"StreamingFilter": {"mesh", "sp_axis", "sp_ghost_frac"}, "sp_config": {"axis",
+            "ghost_frac"}, "slice_levels": {"ghost_frac"}, "make_mesh": {"n_devices", "axis"},
+            "make_dp_train_step": {"augment"}, "grad_step": {"axis_name", "sp_axis", "map_vm"},
+            "fit": {"devices"}}[entry]
+    assert want <= set(shared), (entry, want - set(shared))

@@ -136,8 +136,14 @@ def test_resume_errors(tmp_path):
     ckpt.save(str(tmp_path / "c" / "last.pt"), model, cfg)  # not full: no optimizer state
     with pytest.raises(ValueError, match="no optimizer state"):
         train.fit(cfg, resume=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train.fit(cfg, devices=2, **kw)
+    # Data-parallel fit's contract (sps_tpu's): the batch divides over the
+    # devices, and fewer devices than asked are an error.
+    with pytest.raises(ValueError, match="not divisible by devices 3"):
+        train.fit(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=2)),
+                  devices=3, **kw)
+    with pytest.raises(ValueError, match="available"):
+        train.fit(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=1024)),
+                  devices=1024, **kw)
 
 
 def test_fit_resume_and_predict_from_best(tmp_path):

@@ -45,7 +45,8 @@ def test_every_module_imports_with_jax_blocked():
               "convert", "stream.engine", "pipeline", "eval", "ops.radius", "data.prefetch",
               "stream.replay", "scripts.predict", "train", "ops.augment", "utils.checkpoint",
               "scripts.train", "data.range_image", "models.lts", "models.mos4d",
-              "models.mapmos", "stream.baselines", "ops.hash", "ops.topology"):
+              "models.mapmos", "stream.baselines", "ops.hash", "ops.topology",
+              "parallel.comm", "parallel.spatial", "parallel.mesh", "parallel.launch"):
         assert f"sps_torch.{m}" in mods, m
 
 

@@ -123,6 +123,12 @@ def test_reset_launches():
                                  for name in zc.LAUNCHES}
 
 
+def test_reset_launches_clears_shape_counts():
+    zc.SHAPE_LAUNCHES[("zband_conv_fused", "wgmma", (8, 10, 10, 160), (3, 3, 160, 128))] = 4
+    zc.reset_launches()
+    assert zc.SHAPE_LAUNCHES == {}
+
+
 def test_plan_matches_the_kernel_source():
     """The helpers' tile constants are the .cu's."""
     src = (zc.CSRC / "zband_conv_sm90.cu").read_text()
