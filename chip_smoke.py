@@ -199,6 +199,30 @@ Phases, each of which raises (and exits non-zero) on failure:
               step at config.yaml (bf16, one scan a rank) on two ranks on the
               card: parameters bit-equal across the ranks, finite losses,
               step ms and peak memory a rank.
+  15. baselines trained, the workflow, NCLT - (15a, after phase 11 on the
+              movers data) sps_torch/scripts/train_baselines.py's MOS4D,
+              MapMOS and LTS trainers at the pipeline's sizes
+              (config_loc_movers.yaml: 12288 points a scan, a 4-scan MOS4D
+              buffer, 65536 map points) for a few steps each: finite
+              losses, every parameter tensor moved, ms a step and peak
+              memory; one step of each record of baseline_train_pin.npz on
+              the card against the CPU's (f32 within 1e-4 of each leaf's
+              max gradient, MOS4D in bf16 within its band) and the pin's
+              loss; run_localization of mos4d, mapmos and lts from the new
+              checkpoints on 20220629 (finite ATEs); (15b) the
+              localization-evidence workflow at reduced depth:
+              calibrate_threshold (val, 4 scans), loc_experiment (one run x
+              20220629 x {sps, raw, sps@0.5} into summary.md),
+              loc_calibrate_ate on {0.5, 0.99} with 15a's baselines
+              (calibration.json, the sidecar's threshold, every table
+              entry); (15c) check_nclt_headroom at config_nclt.yaml as
+              shipped (110 m, ~6M map points, 12 scans; the filter at batch
+              1 runs at the YAML's BRICKS halved, 14336 / 4096 / 1280 / 768
+              / 512): no overflow, scores in (0, 1], the int8
+              gather form's launches a scan by level, p50, kernel ms a
+              scan, peak memory; the gather form at those brick counts bit
+              for bit against its plain version, timed beside its bound,
+              and the C = 192 split at L3 bit-equal to one launch.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -254,7 +278,14 @@ def route_source(route) -> str:
     return os.path.relpath(zc.ROUTE_SOURCES[route], HERE)
 
 
+_START = time.time()
+
+
 def log(msg):
+    """Print a line; a phase's first line also gets the seconds since the
+    script started."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [t+{time.time() - _START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -3388,6 +3419,397 @@ def phase_dp_ranks(card, shipped, stable, data):
     return out
 
 
+# Phase 15: the baselines trained on the card (15a), the localization-evidence
+# workflow (15b), config_nclt.yaml at NCLT scale (15c).
+BASELINE_TRAIN_STEPS = 5
+BASELINE_PIN = os.path.join(HERE, "sps_torch", "assets", "baseline_train_pin.npz")
+BASELINE_STEP_RECORDS = ("mos4d_f32", "mos4d", "mapmos", "lts")
+BASELINE_STEP_TOL = 1e-4  # f32: of a leaf's max |grad| (floor: 1e-3 of the model's largest)
+BASELINE_MOVE_REL = 1e-2  # f32: the Adam move of the entries above the noise, per leaf
+BASELINE_ADAM_REL = 1e-3  # the card's move against Adam's first step of its gradient
+# MOS4D in bf16: tests/test_torch_train_baselines.py's band (loss, cosine and
+# relative L2 of all gradients, running statistics).
+BASELINE_BF16_COSINE = 0.92
+BASELINE_BF16_REL = 0.40
+BASELINE_BF16_LOSS = 2.0**-9
+BASELINE_BF16_STATS = 1.63e-3
+NCLT_EXTENT = 110.0
+NCLT_SCANS = 12
+
+
+def compare_baseline_steps(record, card_step, cpu_step, lr):
+    """Card step against CPU step, both from the same weights on the same
+    batch. f32 records: the loss within rtol 1e-5, the gradients within
+    BASELINE_STEP_TOL, the running statistics within 1e-5, and the move
+    w1 - w0 of the entries whose CPU gradient stands above the noise (1e-3
+    of its leaf's max and of the model's largest) within BASELINE_MOVE_REL
+    relative L2 on each leaf. MOS4D in bf16 within its band. Every record:
+    the card's move is Adam's first step of the card's own gradient,
+    -lr g / (|g| + eps), within BASELINE_ADAM_REL relative L2. Returns
+    (ok, the measured differences)."""
+    import torch
+
+    from sps_torch.scripts import train_baselines as tb
+
+    gmax = max(float(g.abs().max()) for g in cpu_step["grads"].values())
+    floor = 1e-3 * gmax
+    loss_rel = abs(card_step["loss"] - cpu_step["loss"]) / abs(cpu_step["loss"])
+    stats = [k for k in cpu_step["after"] if k not in cpu_step["grads"]
+             and cpu_step["after"][k].is_floating_point()]
+    s_err = max(float((card_step["after"][k] - cpu_step["after"][k]).abs().max()
+                      / max(float(cpu_step["after"][k].abs().max()), 1.0)) for k in stats)
+    moved = {k: (card_step["after"][k] - card_step["init"][k]).double()
+             for k in card_step["grads"]}
+    adam = torch.cat([(-lr * g.double() / (g.double().abs() + tb.ADAM["eps"])).reshape(-1)
+                      for g in card_step["grads"].values()])
+    adam_rel = float((torch.cat([m.reshape(-1) for m in moved.values()]) - adam).norm()
+                     / adam.norm())
+    if record == "mos4d":
+        a = torch.cat([g.reshape(-1).double() for g in card_step["grads"].values()])
+        b = torch.cat([g.reshape(-1).double() for g in cpu_step["grads"].values()])
+        cos = float(a @ b / (a.norm() * b.norm()))
+        rel = float((a - b).norm() / b.norm())
+        ok = (loss_rel <= BASELINE_BF16_LOSS and cos >= BASELINE_BF16_COSINE
+              and rel <= BASELINE_BF16_REL and s_err <= BASELINE_BF16_STATS
+              and adam_rel <= BASELINE_ADAM_REL)
+        res = dict(loss_rel=loss_rel, grad_cosine=cos, grad_rel_l2=rel, stats_rel_err=s_err,
+                   adam_rel=adam_rel)
+    else:
+        g_err, worst = max((float((card_step["grads"][k] - g).abs().max())
+                            / max(float(g.abs().max()), floor), k)
+                           for k, g in cpu_step["grads"].items())
+        move_rel = 0.0
+        for k, g in cpu_step["grads"].items():
+            live = g.abs() > max(1e-3 * float(g.abs().max()), floor)
+            if live.any():
+                want = (cpu_step["after"][k] - cpu_step["init"][k]).double()[live]
+                move_rel = max(move_rel, float((moved[k][live] - want).norm() / want.norm()))
+        ok = (loss_rel <= 1e-5 and g_err <= BASELINE_STEP_TOL and s_err <= 1e-5
+              and move_rel <= BASELINE_MOVE_REL and adam_rel <= BASELINE_ADAM_REL)
+        res = dict(loss_rel=loss_rel, grad_rel_err=g_err, move_rel_l2=move_rel,
+                   stats_rel_err=s_err, adam_rel=adam_rel)
+        log(f"  {record}: largest gradient difference in {worst}")
+    return ok, res
+
+
+def phase_baseline_training(card, root):
+    """15a: the baseline trainers (sps_torch/scripts/train_baselines.py) on
+    the card at the pipeline's sizes (config_loc_movers.yaml, the movers
+    train split under `root`: SCAN_POINTS 12288 points a scan, MOS4D on a
+    4-scan buffer, MapMOS against SUBMAP_POINTS 65536 map points, LTS with
+    dropout), BASELINE_TRAIN_STEPS steps each: finite losses, every
+    parameter tensor moved from the trainer's seeded weights, ms a step and
+    peak memory, no kernel of sps_torch/csrc launched. Then one step of each
+    record of baseline_train_pin.npz on the card against the same step on
+    the CPU (TF32 off; f32 within BASELINE_STEP_TOL, MOS4D in bf16 within
+    its band; LTS at dropout 0) and against the pin's loss (sps_tpu's), and
+    run_localization with the new checkpoints (--baseline-weights) for
+    mos4d, mapmos and lts on 20220629: finite ATEs. Returns the results and
+    the checkpoint directory."""
+    import torch
+
+    from sps_torch import config
+    from sps_torch.data import blt
+    from sps_torch.models import lts
+    from sps_torch.models.mapmos import MapMOSNet
+    from sps_torch.models.mos4d import MOS4DNet
+    from sps_torch.scripts import train_baselines as tb
+    from sps_torch.stream import localize as loc
+    from sps_torch.utils import checkpoint
+
+    log("phase 15a: the baselines trained on the card (train_baselines at the pipeline's sizes)")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on: phase 2 turns it off for the f32 comparisons")
+    cfg = config.load(os.path.join(HERE, "config", "config_loc_movers.yaml"), data_root=root)
+    scans, poses = blt.load_sequences_raw(root, cfg.data.train)
+    mp = blt.load_map(root, cfg.data.map_file)
+    out_dir = os.path.join(HERE, "build", "baselines_trained")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pps, nm, steps = cfg.tpu.scan_points, cfg.tpu.submap_points, BASELINE_TRAIN_STEPS
+    runs = {
+        "mos4d": (lambda: tb.train_mos4d(cfg, scans, poses, True, steps, 4, pps, out_dir, 0),
+                  lambda: MOS4DNet(tb.mos4d_config(cfg, 4), torch.Generator().manual_seed(0))),
+        "mapmos": (lambda: tb.train_mapmos(cfg, scans, poses, mp, steps, pps, nm, out_dir, 0),
+                   lambda: MapMOSNet(tb.mapmos_config(cfg), torch.Generator().manual_seed(0))),
+        "lts": (lambda: tb.train_lts(cfg, scans, steps, out_dir, 0), None)}
+    trained = {}
+    step_ms = []
+    real_step = tb.train_step
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_step(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    reset_counts()
+    tb.train_step = timed_step
+    try:
+        for name, (train, init_model) in runs.items():
+            step_ms.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            path, losses = train()
+            torch.cuda.synchronize()
+            trained[name] = dict(losses=losses, ms_a_step=(time.perf_counter() - t) * 1e3 / steps,
+                                 step_ms=list(step_ms), path=path,
+                                 peak=torch.cuda.max_memory_allocated())
+    finally:
+        tb.train_step = real_step
+    for name, (_, init_model) in runs.items():
+        losses, path, peak = (trained[name][k] for k in ("losses", "path", "peak"))
+        first, rest = trained[name]["step_ms"][0], statistics.median(trained[name]["step_ms"][1:])
+        if init_model is None:
+            init = lts.init_state_dict(0, random_stats=False)
+        else:
+            init = init_model().state_dict()
+        got = checkpoint.restore(path)["model"]
+        params = [k for k, v in init.items() if k.endswith(("kernel", "weight", "bias", "scale"))]
+        still = [k for k in params if torch.equal(got[k].cpu(), init[k])]
+        trained[name].update(first_step_ms=first, step_ms_p50=rest)
+        log(f"  {name}: {steps} steps, losses {[round(x, 4) for x in losses]}, "
+            f"{trained[name]['ms_a_step']:.1f} ms a step with the sampling; train_step "
+            f"{first:.1f} ms the first, p50 {rest:.1f} ms the rest (synchronised); peak "
+            f"{peak / 2**30:.2f} GiB, {len(params) - len(still)} of {len(params)} parameter "
+            f"tensors moved [{card}]")
+        if not all(np.isfinite(losses)) or still:
+            raise AssertionError(f"15a {name}: losses {losses}, parameters that did not move "
+                                 f"{still}")
+    launched = {k: v for k, v in read_counts().items()
+                if (sum(v.values()) if isinstance(v, dict) else v)}
+    if launched:
+        raise AssertionError(f"a kernel of sps_torch/csrc ran in the baselines' training: "
+                             f"{launched}")
+    model = MOS4DNet(tb.mos4d_config(cfg, 4), torch.Generator().manual_seed(0)).cuda().train()
+    opt = tb.adam(model, "mos4d")
+    batch = next(tb.mos4d_batches(scans, poses, 4, pps, 0))
+    tb.train_step(model, opt, lambda: tb.mos4d_loss(model, batch))
+    kernels, _, wall_us = profiled(
+        lambda i: tb.train_step(model, opt, lambda: tb.mos4d_loss(model, batch)), 2)
+    trained["mos4d"]["profile"] = dict(
+        kernel_ms=sum(_device_us(e) for e in kernels) / 2e3, wall_ms=wall_us / 2e3,
+        launches=sum(e.count for e in kernels) / 2,
+        top=[(e.key[:80], _device_us(e) / 2e3, e.count / 2)
+             for e in sorted(kernels, key=_device_us, reverse=True)[:8]])
+    log(f"  profile of a MOS4D step: kernels {trained['mos4d']['profile']['kernel_ms']:.1f} ms, "
+        f"wall {trained['mos4d']['profile']['wall_ms']:.1f} ms, "
+        f"{trained['mos4d']['profile']['launches']:.0f} launches; top: " + "; ".join(
+            f"{k} {ms:.2f} ms x{n:.0f}" for k, ms, n in trained["mos4d"]["profile"]["top"])
+        + f" [{card}]")
+    del model, opt
+    torch.cuda.empty_cache()
+    z = np.load(BASELINE_PIN)
+    meta = json.loads(str(z["meta"]))
+    steps_cmp = {}
+    for record in BASELINE_STEP_RECORDS:
+        batch = tuple(z[f"{record}/batch/{i}"] for i in range(6)
+                      if f"{record}/batch/{i}" in z.files)
+        on_card = tb.pin_step(record, batch, meta, "cuda")
+        on_cpu = tb.pin_step(record, batch, meta, "cpu")
+        ok, res = compare_baseline_steps(record, on_card, on_cpu,
+                                         tb.LR[record.removesuffix("_f32")])
+        res.update(loss=on_card["loss"], loss_cpu=on_cpu["loss"],
+                   loss_pin=float(z[f"{record}/loss"]))
+        log(f"  step {record} card vs CPU: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in res.items()) + f" [{card}]")
+        pin_band = BASELINE_BF16_LOSS if record == "mos4d" else 1e-5
+        if not ok or abs(res["loss"] - res["loss_pin"]) > pin_band * abs(res["loss_pin"]):
+            raise AssertionError(f"15a {record}: the card's step differs: {res}")
+        steps_cmp[record] = res
+    loc_cfg = config.load(os.path.join(HERE, "config", "config_loc_movers.yaml"),
+                          data_root=root)
+    locs, cache = {}, {}
+    for mode in ("mos4d", "mapmos", "lts"):
+        t = time.perf_counter()
+        r = loc.run_localization(loc_cfg, {}, "20220629", mode, prior="odom", init_noise=0.05,
+                                 baseline_weights=out_dir, cache=cache, log=lambda s: None)
+        locs[mode] = dict(ate=r["ate_rmse"], kept=r["kept_frac_mean"],
+                          wall_s=time.perf_counter() - t)
+        log(f"  run_localization {mode} from {os.path.relpath(out_dir, HERE)}: ATE "
+            f"{r['ate_rmse']:.4f} m, kept {r['kept_frac_mean']:.3f}, "
+            f"{locs[mode]['wall_s']:.1f} s [{card}]")
+        if not np.isfinite(r["ate_rmse"]):
+            raise AssertionError(f"15a {mode}: ATE {r['ate_rmse']}")
+    del cache
+    torch.cuda.empty_cache()
+    return {"trained": trained, "steps": steps_cmp, "localization": locs, "dir": out_dir}
+
+
+def phase_workflow(card, root, baselines_dir):
+    """15b: the localization-evidence workflow's CLIs at reduced depth on
+    the movers data under `root`, with ckpt_loc_movers_v2 (its npz copied
+    under build/, where calibration.json is written beside it):
+    calibrate_threshold on the val sequence (4 scans; epsilon on the grid,
+    F1 in [0, 1]); loc_experiment: one run x 20220629 x {sps, raw, sps@0.5}
+    into a summary.md with those rows; loc_calibrate_ate on the grid
+    {0.5, 0.99} with the baselines of 15a: calibration.json, its robustness
+    window, and every (sequence, filter) of the table present (a failed
+    entry, which the workflow logs and skips, fails the phase)."""
+    from sps_torch.convert import ASSETS
+    from sps_torch.scripts import calibrate_threshold, loc_calibrate_ate, loc_experiment
+
+    log("phase 15b: the localization-evidence workflow (calibrate, table, ATE-optimal epsilon)")
+    cfg_path = os.path.join(HERE, "config", "config_loc_movers_v2.yaml")
+    work = os.path.join(HERE, "build", "workflow")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    weights = os.path.join(work, "ckpt_loc_movers_v2.npz")
+    shutil.copyfile(os.path.join(ASSETS, "ckpt_loc_movers_v2.npz"), weights)
+    shutil.copyfile(os.path.join(ASSETS, "ckpt_loc_movers_v2.config.json"),
+                    weights + ".config.json")
+    grid = [round(float(e), 3) for e in calibrate_threshold.EPSILON_GRID]
+    t = time.perf_counter()
+    best = calibrate_threshold.main(["-c", cfg_path, "-w", weights, "--data", root,
+                                     "--max-scans", "4"])
+    log(f"  calibrate_threshold: epsilon {best['epsilon']}, F1 {best['f1']}, precision "
+        f"{best['precision']}, recall {best['recall']} on {best['points']} points of "
+        f"{best['sequence']} ({time.perf_counter() - t:.1f} s) [{card}]")
+    if best["epsilon"] not in grid or not 0 <= best["f1"] <= 1:
+        raise AssertionError(f"15b calibrate_threshold: {best}")
+    exp_out = os.path.join(work, "exp")
+    t = time.perf_counter()
+    lines = loc_experiment.main(["-c", cfg_path, "-w", weights, "--data", root, "-seq",
+                                 "20220629", "--filters", "sps,raw,sps@0.5", "--init-noise",
+                                 "0.05", "--out", exp_out, "--fresh"])
+    exp_s = time.perf_counter() - t
+    with open(os.path.join(exp_out, "summary.md")) as f:
+        summary = f.read().splitlines()
+    rows = [ln for ln in summary if ln.startswith("| odom | y | 20220629 |")]
+    log(f"  loc_experiment ({exp_s:.1f} s): " + " / ".join(rows))
+    if summary != lines or [r.split(" | ")[3] for r in rows] != ["sps", "raw", "sps@0.5"]:
+        raise AssertionError(f"15b loc_experiment summary.md: {summary}")
+    ate_out = os.path.join(work, "ate")
+    filters = ["sps", "raw", "mos4d", "mapmos", "lts"]
+    t = time.perf_counter()
+    res = loc_calibrate_ate.main(["-c", cfg_path, "--data", root, "-w", weights, "--baselines",
+                                  baselines_dir, "--grid", "0.5,0.99", "--runs", "1",
+                                  "--filters", ",".join(filters), "--out", ate_out])
+    ate_s = time.perf_counter() - t
+    with open(os.path.join(work, "calibration.json")) as f:
+        cal = json.load(f)
+    with open(weights + ".config.json") as f:
+        threshold = json.load(f)["threshold"]
+    done = sorted((r["seq"], r["filter"]) for r in res["results"])
+    want = sorted((s, f) for s in ("20220629", "20220629_clean") for f in filters)
+    log(f"  loc_calibrate_ate ({ate_s:.1f} s): sweep " + ", ".join(
+        f"eps {r['epsilon']}: ATE {r['ate_rmse']} kept {r['kept_frac']}" for r in cal["ate_sweep"])
+        + f"; epsilon_ate {cal['epsilon_ate']}, window {cal['epsilon_robustness']['window']}; "
+        "table " + ", ".join(f"{r['seq']}/{r['filter']} {r['ate_rmse']:.4f}"
+                             for r in res["results"]) + f" [{card}]")
+    if (done != want or cal["epsilon_ate"] not in (0.5, 0.99) or threshold != cal["epsilon_ate"]
+            or not all(np.isfinite(r["ate_rmse"]) for r in res["results"])):
+        raise AssertionError(f"15b loc_calibrate_ate: table {done}, calibration {cal}")
+    return {"calibrate_threshold": best, "loc_experiment": rows, "loc_experiment_s": exp_s,
+            "epsilon_ate": cal["epsilon_ate"], "ate_sweep": cal["ate_sweep"],
+            "robustness": cal["epsilon_robustness"], "loc_calibrate_ate_s": ate_s,
+            "table": {f"{r['seq']}/{r['filter']}": r["ate_rmse"] for r in res["results"]}}
+
+
+def phase_nclt(card):
+    """15c: check_nclt_headroom at config_nclt.yaml as shipped, extent
+    NCLT_EXTENT and NCLT_SCANS scans (~6M map points), through its CLI
+    entry point with every launch count set to 0 just before and read just
+    after: no overflow, scores finite in (0, 1], the int8 gather form's
+    launches by (B, C, N) equal to INT8_CALLS a scan at the levels' brick
+    counts (reported a scan by level; no launch of the halo form or the
+    z-band kernels), p50, peak memory, the filter's kernel ms and
+    launches a scan (profiler, 8 scans); then the gather form at NCLT's
+    L0-L2 brick counts bit for bit against its plain version at the ten
+    calls' shapes, timed beside its bound, and the C = 192 split (six
+    launches of 32 channels) at NCLT's L3 brick count bit-equal to one
+    launch's plain version."""
+    import torch
+
+    from sps_torch import config
+    from sps_torch.ops import brick as bk
+    from sps_torch.ops import brick_conv_int8 as bi8
+    from sps_torch.scripts import check_nclt_headroom
+    from sps_torch.scripts.int8_variants import gather_bound
+
+    log(f"phase 15c: config_nclt.yaml as shipped at {NCLT_EXTENT:g} m, {NCLT_SCANS} scans")
+    cfg = config.load(os.path.join(HERE, "config", "config_nclt.yaml"))
+    caps = cfg.sps_config(1).caps.bricks
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, per_scan, filt = check_nclt_headroom.main(
+        ["--extent", f"{NCLT_EXTENT:g}", "--scans", str(NCLT_SCANS)])
+    launches = read_counts()
+    by_shape = dict(bi8.GATHER_SHAPE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t
+    by_level = {lv: sum(n for (b, _, _), n in by_shape.items() if b == caps[lv]) / NCLT_SCANS
+                for lv in (0, 1, 2)}
+    lat = [r["ms"] for r in per_scan]
+    p50 = statistics.median(lat)
+    log(f"  {json.dumps(out)}; per scan (n_scan_voxels, topo_miss_points): "
+        + ", ".join(f"({r['n_scan_voxels']}, {r['topo_miss_points']})" for r in per_scan))
+    lo, hi = min(r["score_min"] for r in per_scan), max(r["score_max"] for r in per_scan)
+    log(f"  p50 {p50:.2f} ms a scan (first {lat[0]:.1f} ms), peak {peak / 2**30:.2f} GiB, "
+        f"{wall:.1f} s with the world and the map; scores in [{lo:.4f}, {hi:.4f}]; int8 "
+        f"gather launches a scan by level "
+        f"{by_level}, by (B, C, N) {by_shape}; all launches {launches} [{card}]")
+    others = {k: v for k, v in launches.items() if k != "brick_conv_int8_gather"
+              and (sum(v.values()) if isinstance(v, dict) else v)}
+    want_shapes = {}
+    for _, level, per, c, n in INT8_CALLS:
+        key = (caps[level], c, n)
+        want_shapes[key] = want_shapes.get(key, 0) + per * NCLT_SCANS
+    if (out["overflow"] or out["scans"] != NCLT_SCANS
+            or not all(0 < r["score_min"] <= r["score_max"] <= 1 for r in per_scan)
+            or by_shape != want_shapes or others):
+        raise AssertionError(f"15c: {out}, launches {launches}, by level {by_level}")
+    _, scans, valids = check_nclt_headroom.world(NCLT_EXTENT, NCLT_SCANS,
+                                                      cfg.tpu.scan_points)
+    data = (scans, valids, np.zeros(valids.shape, np.float32))
+    prof = filter_kernel_ms(filt, data, card, "config_nclt.yaml")
+    del filt
+    torch.cuda.empty_cache()
+    calls = []
+    for i, (where, level, per, c, n) in enumerate(INT8_CALLS):
+        b = caps[level]
+        nb = b - b // 10
+        q8, nbr, w8, scale = gather_case(b, nb, c, n, seed=700 + i)
+        check_gather(q8, nbr, w8, scale, f"NCLT {where} q8{tuple(q8.shape)} N={n}")
+        ms = time_ms(lambda: bi8.brick_conv_int8_gather(q8, nbr, w8, scale, torch.bfloat16))
+        plain_ms = time_ms(lambda: bi8.brick_conv_int8_gather_ref(q8, nbr, w8, scale,
+                                                                  torch.bfloat16),
+                           runs=3, warmup=1)
+        ops, nbytes, bound_ms, bound_by = gather_bound(b, nb, c, n)
+        calls.append(dict(call=where, level=f"L{level}", calls_per_scan=per, b=b, num_bricks=nb,
+                          c=c, n=n, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, gop=ops / 1e9, gbytes=nbytes / 1e9))
+        log(f"  time brick_conv_int8_gather NCLT {where:20s} L{level} B={b} ({nb} bricks) "
+            f"{c}->{n} bf16 [{card}]: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by})")
+        del q8, nbr, w8, scale
+        torch.cuda.empty_cache()
+    scan_sums = {k: sum(c[k] * c["calls_per_scan"] for c in calls)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"  brick_conv_int8_gather at NCLT's capacities, a scan (10 calls) [{card}]: "
+        f"{scan_sums['ms']:.3f} ms, bound {scan_sums['bound_ms']:.3f} ms, plain "
+        f"{scan_sums['plain_ms']:.3f} ms")
+    b3 = caps[3]
+    q8, nbr, w8, scale = gather_case(b3, b3 - b3 // 10, 192, 64, seed=799)
+    got = bk._int8_gather(q8, nbr, w8, scale, torch.bfloat16)
+    want = bi8.brick_conv_int8_gather_ref(q8, nbr, w8, scale, torch.bfloat16)
+    split_equal = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    log(f"  C = 192 at L3 B={b3}: {192 // bk.INT8_CHUNK} launches of {bk.INT8_CHUNK} channels "
+        f"bit-equal to one launch's plain version: {split_equal}")
+    if not split_equal:
+        raise AssertionError("15c: the C = 192 split differs from the plain version")
+    del q8, nbr, w8, scale, got, want
+    torch.cuda.empty_cache()
+    return {"summary": out, "p50": p50, "lat": lat, "peak": peak, "launches": launches,
+            "topo_miss_points": [r["topo_miss_points"] for r in per_scan],
+            "int8_by_level": by_level, "int8_by_shape": {str(k): v for k, v in by_shape.items()},
+            "profile": prof, "calls": calls, "a_scan": scan_sums, "caps": list(caps)}
+
+
 def main() -> int:
     import torch
 
@@ -3449,6 +3871,8 @@ def main() -> int:
     try:
         trained = phase_trained(card, movers_root)
         baselines = phase_baselines(card, movers_root, profile)
+        bl_train = phase_baseline_training(card, movers_root)
+        workflow = phase_workflow(card, movers_root, bl_train["dir"])
         gate = phase_gate(card)
         predict_trained = phase_predict_trained(card, movers_root)
     finally:
@@ -3469,6 +3893,7 @@ def main() -> int:
     nccl1 = phase_one_rank_nccl(card, shipped, sd, stable, data)
     sp2 = phase_sp_ranks(card, shipped, sd, stable, data)
     dp2 = phase_dp_ranks(card, shipped, stable, data)
+    nclt = phase_nclt(card)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -3551,6 +3976,12 @@ def main() -> int:
         "offline_launches": {**{f"gate_{k}": r["launches"] for k, r in gate.items()},
                              "predict_blt": predict_blt["launches"],
                              "replay": replay["launches"]},
+        "nclt_15c": {"launches": nclt["launches"]["brick_conv_int8_gather"],
+                     "launches_a_scan_by_level": nclt["int8_by_level"],
+                     "bricks_caps": nclt["caps"], "calls": nclt["calls"], "a_scan": nclt["a_scan"],
+                     "filter_kernel_ms_a_scan": nclt["profile"]["kernel_ms"],
+                     "filter_launches_a_scan": nclt["profile"]["launches"],
+                     "p50_ms": nclt["p50"], "peak_bytes": nclt["peak"]},
         "calls": gather_calls,
         "halo_form": {
             "name": "brick_conv_int8", "source": os.path.relpath(bi8.SOURCE, HERE),
@@ -3591,7 +4022,17 @@ def main() -> int:
         f"{nccl1['dp_max_diff']:.2e}; 14b p50 rank 0 " + ", ".join(
             f"{k} {v[0]['p50']:.1f} ms" for k, v in sp2.items())
         + f"; 14c dp-2 step {dp2[0]['step_ms']:.1f} / {dp2[1]['step_ms']:.1f} ms, peak "
-        f"{dp2[0]['peak'] / 2**30:.2f} / {dp2[1]['peak'] / 2**30:.2f} GiB")
+        f"{dp2[0]['peak'] / 2**30:.2f} / {dp2[1]['peak'] / 2**30:.2f} GiB; 15a baseline steps "
+        + ", ".join(f"{k} {v['ms_a_step']:.1f} ms ({v['peak'] / 2**30:.2f} GiB)"
+                    for k, v in bl_train["trained"].items())
+        + ", ATE from the trained checkpoints " + ", ".join(
+            f"{k} {v['ate']:.4f}" for k, v in bl_train["localization"].items())
+        + f" m; 15b calibrated epsilon {workflow['calibrate_threshold']['epsilon']} (F1 "
+        f"{workflow['calibrate_threshold']['f1']}), ATE-optimal {workflow['epsilon_ate']}; 15c "
+        f"NCLT {nclt['summary']['map_points']} map points, no overflow, p50 {nclt['p50']:.2f} ms, "
+        f"kernels {nclt['profile']['kernel_ms']:.2f} ms a scan, peak "
+        f"{nclt['peak'] / 2**30:.2f} GiB, int8 gather {nclt['a_scan']['ms']:.3f} ms a scan "
+        f"(bound {nclt['a_scan']['bound_ms']:.3f})")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
         [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines,hash,
-                sp,dp]
+                sp,dp,baseline_train,nclt]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -118,8 +118,26 @@ Writes, under sps_torch/assets/:
                                   for each world the loss, r2, overflow, the
                                   gradients summed over sp and the batch_stats
                                   after the step (written with --only sp).
+  baseline_train_pin.npz          one step of each trainer of
+                                  scripts/train_baselines.py as it runs them
+                                  (BT_META: config_loc.yaml at voxel 0.25, 64
+                                  bricks a level, a tiny seeded dataset stored
+                                  in the pin), from the port trainers' seeded
+                                  weights, LTS at dropout 0, MOS4D also with
+                                  level 0's occupancy in f32 (mos4d_f32): the
+                                  batch, the loss, the batch_stats after the
+                                  step, and of every gradient and parameter
+                                  leaf after the step its max-abs, sum and sum
+                                  of squares and PIN_SAMPLE evenly spaced
+                                  entries;
+  nclt_pin.npz                    sps_tpu's StreamingFilter over
+                                  scripts/check_nclt_headroom.py's world at
+                                  config_nclt.yaml, world and capacities cut
+                                  for the CPU (NCLT_META lists each cut): the
+                                  world and every scan's integer stats.
 
-Runs on the CPU: ckpt, loop, train, baselines, hash, sp and dp in a few minutes, loc ~14 min
+Runs on the CPU: ckpt, loop, train, baselines, hash, sp, dp, baseline_train and nclt in a
+few minutes each, loc ~14 min
 (--scans 20), parity and predict several minutes each (bf16 on XLA:CPU is slow),
 loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU).
 """
@@ -954,14 +972,262 @@ def export_dp_pin():
         f"({time.time() - t:.0f} s)")
 
 
+# The baseline trainers' pin: config_loc.yaml (scripts/train_baselines.py's
+# default) at voxel 0.25 with the level capacities cut to 64 bricks, a tiny
+# seeded dataset (sps_torch.data.synthetic; six scans in the sensor frame with
+# yawed poses, the stable world as the map), one step of each trainer.
+BT_META = {"config": "config/config_loc.yaml", "voxel_size": 0.25,
+           "caps": dict(points=1024, voxels=[1024, 512, 256, 256, 256], bricks=[64] * 5),
+           "world": dict(seed=21, extent=4.0, n_stable=6, ground_points=3000),
+           "clutter": [3, 2.4], "scans": 6, "n_rays": 60, "max_r": 6.0,
+           "n_scans": 2, "ns": 256, "nm": 512, "seed": 0, "steps": 1, "lts_dropout": 0.0}
+
+
+def baseline_train_inputs(meta=BT_META):
+    """The pin's dataset: (scans [x, y, z, label] in the sensor frame, 4x4
+    poses, map points)."""
+    from sps_torch.data import synthetic as tsyn
+
+    rng = np.random.default_rng(meta["world"]["seed"])
+    stable = tsyn.make_world(**meta["world"])
+    n, ext = meta["clutter"]
+    clutter = tsyn._boxes(rng, n, ext).astype(np.float32)
+    scans, poses = [], []
+    for i in range(meta["scans"]):
+        px, py, yaw = -1.0 + 0.4 * i, 0.2 * i, 0.1 * i
+        pts, lab = tsyn.sample_scan(rng, stable, clutter, np.array([px, py]),
+                                    n_rays=meta["n_rays"], max_r=meta["max_r"])
+        pose = np.eye(4)
+        c, s_ = np.cos(yaw), np.sin(yaw)
+        pose[:3, :3] = [[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]]
+        pose[:3, 3] = [px, py, 0.0]
+        local = (pts - pose[:3, 3]) @ pose[:3, :3]
+        scans.append(np.concatenate([local, lab[:, None]], 1).astype(np.float32))
+        poses.append(pose)
+    return scans, poses, stable
+
+
+def baseline_train_config(meta=BT_META):
+    """meta's config as an sps_tpu Config whose sps_config carries meta's
+    capacities (the port's half: sps_torch.scripts.train_baselines.pin_config)."""
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu.structs import Capacities
+
+    cfg = jcfg_mod.load(os.path.join(HERE, meta["config"]))
+    cfg = dataclasses.replace(cfg, voxel_size=meta["voxel_size"])
+    caps = Capacities(points=meta["caps"]["points"], voxels=tuple(meta["caps"]["voxels"]),
+                      bricks=tuple(meta["caps"]["bricks"]))
+
+    class Small(type(cfg)):
+        def sps_config(self, batch_size=None):
+            return dataclasses.replace(super().sps_config(batch_size), caps=caps)
+
+    return Small(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+
+PIN_SAMPLE = 1024  # entries kept of a leaf larger than this (evenly spaced)
+
+
+def pin_sample(a):
+    """A leaf as stored in the baseline train pin: whole when it has at most
+    PIN_SAMPLE entries, else PIN_SAMPLE evenly spaced entries of its flat
+    view (tests/test_torch_train_baselines.py takes the same ones)."""
+    flat = np.asarray(a, np.float32).reshape(-1)
+    if flat.size <= PIN_SAMPLE:
+        return flat
+    return flat[(np.arange(PIN_SAMPLE) * flat.size) // PIN_SAMPLE]
+
+
+def lts_flax_tree(sd):
+    """SPCTReg state_dict -> flax variables (Linear weight (out, in) ->
+    Dense kernel (in, out))."""
+    return flax_tree({(k[:-len("weight")] + "kernel" if k.endswith(".weight") else k):
+                      (v.T.contiguous() if k.endswith(".weight") else v)
+                      for k, v in sd.items()})
+
+
+def export_baseline_train_pin():
+    """One step of each of scripts/train_baselines.py's trainers, run as the
+    script runs them, from the port trainers' seeded initial weights
+    (jax.jit wrapped: model.init returns those weights, step_fn records its
+    inputs and outputs; the checkpoint write skipped; LTS with dropout 0):
+    the batch, the loss, the batch_stats after the step, and of every
+    gradient leaf and every parameter after the step its max-abs, sum and
+    sum of squares (f64) and its entries (pin_sample). MOS4D is recorded
+    twice: as the script runs it (bf16, "mos4d") and with level 0's
+    occupancy in f32 ("mos4d_f32"), where rounding does not hide the
+    arithmetic."""
+    import functools
+
+    import jax
+    from flax.core import unfreeze
+
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import train_baselines as jtb
+
+    from sps_tpu.models import lts as jlts
+    from sps_tpu.utils import checkpoint as jckpt
+    from sps_torch.scripts import train_baselines as ttb
+
+    meta = BT_META
+    scans, poses, mp = baseline_train_inputs(meta)
+    cfg = baseline_train_config(meta)
+    seed = meta["seed"]
+    from sps_tpu.models import mos4d as jm4
+
+    real_pyramid = jm4.build_pyramid
+
+    def f32_pyramid(pb, scfg):
+        """build_pyramid with level 0's occupancy in f32: MOS4D's network
+        then computes in f32 (its input feature is 0.5 * that occupancy)."""
+        levels, p2s, overflow = real_pyramid(pb, scfg)
+        lv0 = levels[0]._replace(grid=levels[0].grid.replace(
+            occ=levels[0].grid.occ.astype(jax.numpy.float32)))
+        return [lv0, *levels[1:]], p2s, overflow
+
+    inits = {  # the port trainers' initial weights, as flax variables
+        "mos4d": flax_tree(ttb.pin_model("mos4d", meta)[0].state_dict()),
+        "mapmos": flax_tree(ttb.pin_model("mapmos", meta)[0].state_dict()),
+        "lts": lts_flax_tree(ttb.pin_model("lts", meta)[0].state_dict())}
+    records, current = [], []
+    real_jit, real_save, real_lts = jax.jit, jckpt.save, jlts.SPCTReg
+
+    def recording_jit(f, *a, **k):
+        if getattr(f, "__name__", "") == "init":
+            return lambda *args: jax.tree.map(jax.numpy.asarray, inits[current[0]])
+        j = real_jit(f, *a, **k)
+        if getattr(f, "__name__", "") != "step_fn":
+            return j
+
+        def call(*args):
+            out = j(*args)
+            records.append(jax.tree.map(np.asarray, (args, out)))
+            return out
+
+        return call
+
+    out = {"meta": np.asarray(json.dumps({**meta, "pin_sample": PIN_SAMPLE})), "map": mp,
+           "poses": np.stack(poses), "scan_sizes": np.asarray([len(x) for x in scans]),
+           "scans": np.concatenate(scans)}
+    jax.jit, jckpt.save = recording_jit, (lambda *a, **k: None)
+    jlts.SPCTReg = functools.partial(real_lts, dropout=meta["lts_dropout"])
+    try:
+        steps = meta["steps"]
+        runs = {
+            "mos4d": lambda: jtb.train_mos4d(cfg, scans, poses, True, steps, meta["n_scans"],
+                                             meta["ns"], "unused", seed),
+            "mapmos": lambda: jtb.train_mapmos(cfg, scans, poses, mp, steps, meta["ns"],
+                                               meta["nm"], "unused", seed),
+            "lts": lambda: jtb.train_lts(cfg, scans, steps, "unused", seed)}
+        runs["mos4d_f32"] = runs["mos4d"]
+        for name, run in runs.items():
+            t = time.time()
+            records.clear()
+            current[:] = [name.removesuffix("_f32")]
+            jm4.build_pyramid = f32_pyramid if name == "mos4d_f32" else real_pyramid
+            run()
+            args, (params_1, bstats_1, opt_1, loss) = records[0]
+            batch = args[3:5] if name == "lts" else args[3:]  # LTS: no dropout key
+            # optax.adam's first moment after one step from zero is (1 - b1) g.
+            grads = jax.tree.map(lambda m: m / (1.0 - 0.9), opt_1[0].mu)
+            out[f"{name}/loss"] = np.float64(loss)
+            for i, b in enumerate(batch):
+                out[f"{name}/batch/{i}"] = np.asarray(b)
+            out.update({f"{name}/batch_stats_1/{k}": v
+                        for k, v in flat_tree(unfreeze(bstats_1)).items()})
+            for prefix, tr_ in (("grads", grads), ("params_1", params_1)):
+                for k, v in flat_tree(unfreeze(tr_)).items():
+                    v64 = v.astype(np.float64)
+                    out[f"{name}/{prefix}/{k}"] = pin_sample(v)
+                    out[f"{name}/{prefix}_stats/{k}"] = np.asarray(
+                        [np.abs(v64).max(), v64.sum(), (v64 ** 2).sum(), v.size])
+            log(f"baseline train pin {name}: loss {float(loss):.6f} ({time.time() - t:.0f} s)")
+    finally:
+        jax.jit, jckpt.save, jlts.SPCTReg = real_jit, real_save, real_lts
+        jm4.build_pyramid = real_pyramid
+    np.savez_compressed(os.path.join(ASSETS, "baseline_train_pin.npz"), **out)
+
+
+# scripts/check_nclt_headroom.py at config_nclt.yaml, cut for the CPU: each
+# entry of "cut" replaces the shipped value beside it in "shipped".
+NCLT_META = {"config": "config/config_nclt.yaml",
+             "cut": {"extent": 4.0, "scans": 2, "n_stable": 4, "n_clutter": 2, "n_rays": 280,
+                     "scan_points": 4096, "bricks": [1024, 512, 512, 512, 512],
+                     "voxels": [16384, 8192, 4096, 2048, 1024]},
+             "shipped": {"extent": 110.0, "scans": 12, "n_stable": 580, "n_clutter": 120,
+                         "n_rays": 8640, "scan_points": 131072,
+                         "bricks": [28672, 8192, 2560, 1536, 1024],
+                         "voxels": [262144, 65536, 49152, 24576, 8192]},
+             "stats": ["n_scan_voxels", "n_submap_voxels", "overflow", "topo_miss_points"]}
+
+
+def nclt_world(meta=NCLT_META):
+    """scripts/check_nclt_headroom.py's world (sps_tpu.data.synthetic) at
+    meta's cut: (map, scans, valids)."""
+    from sps_tpu.data import synthetic as jsyn
+
+    c = meta["cut"]
+    extent, ns = c["extent"], c["scan_points"]
+    rng = np.random.default_rng(7)
+    stable = jsyn.make_world(seed=7, extent=extent, n_stable=c["n_stable"],
+                             ground_points=int(1_200_000 * (extent / 50.0) ** 2))
+    clutter = jsyn._boxes(rng, c["n_clutter"], extent * 0.8).astype(np.float32)
+    scans = np.zeros((c["scans"], ns, 3), np.float32)
+    valids = np.zeros((c["scans"], ns), bool)
+    for i in range(c["scans"]):
+        ang = 2 * np.pi * i / c["scans"]
+        pose_xy = (0.5 * extent) * np.array([np.cos(ang), np.sin(ang)])
+        pts, _ = jsyn.sample_scan(rng, stable, clutter, pose_xy, n_rays=c["n_rays"], max_r=30.0)
+        k = min(len(pts), ns)
+        scans[i, :k], valids[i, :k] = pts[:k], True
+    return stable, scans, valids
+
+
+def nclt_config(mod, meta=NCLT_META):
+    cfg = mod.load(os.path.join(HERE, meta["config"]))
+    c = meta["cut"]
+    return dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, scan_points=c["scan_points"], bricks=tuple(c["bricks"]),
+        voxels=tuple(c["voxels"])))
+
+
+def export_nclt_pin():
+    """sps_tpu's StreamingFilter (create_state's weights, seed 0) over
+    nclt_world at nclt_config: the world and every scan's integer stats."""
+    import jax
+
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu import train as tr
+    from sps_tpu.stream.engine import StreamingFilter
+
+    meta = NCLT_META
+    cfg = nclt_config(jcfg_mod, meta)
+    stable, scans, valids = nclt_world(meta)
+    state = tr.create_state(cfg, jax.random.PRNGKey(0), steps_per_epoch=1)
+    filt = StreamingFilter(cfg, {"params": state.params, "batch_stats": state.batch_stats},
+                           stable)
+    t = time.time()
+    eye = np.eye(4, dtype=np.float32)
+    labels = np.zeros((scans.shape[1],), np.float32)
+    rows = [filt(scans[i], valids[i], labels, eye)[2] for i in range(len(scans))]
+    out = {"meta": np.asarray(json.dumps(meta)), "stable": stable, "scans": scans,
+           "valids": valids}
+    for k in meta["stats"]:
+        out[k] = np.asarray([int(r[k]) for r in rows])
+    np.savez_compressed(os.path.join(ASSETS, "nclt_pin.npz"), **out)
+    log(f"nclt pin: " + ", ".join(f"{k} {out[k].tolist()}" for k in meta["stats"])
+        + f" ({time.time() - t:.0f} s)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
     ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train,"
-                                      "baselines,loc_baselines,hash,sp,dp",
+                                      "baselines,loc_baselines,hash,sp,dp,baseline_train,nclt",
                     help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
-                         "predict, train, baselines, loc_baselines, hash, sp, dp")
+                         "predict, train, baselines, loc_baselines, hash, sp, dp, "
+                         "baseline_train, nclt")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -990,6 +1256,10 @@ def main(argv=None):
         export_sp_step_pin()
     if "dp" in parts:
         export_dp_pin()
+    if "baseline_train" in parts:
+        export_baseline_train_pin()
+    if "nclt" in parts:
+        export_nclt_pin()
 
 
 if __name__ == "__main__":

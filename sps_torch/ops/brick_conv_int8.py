@@ -34,6 +34,8 @@ SOURCE = zc.CSRC / "brick_conv_int8.cu"
 # the halo form's and, in a dict of its own, the gather form's.
 LAUNCHES = {"brick_conv_int8": 0}
 GATHER_LAUNCHES = {"brick_conv_int8_gather": 0}
+# The gather form's launches by shape: (B, C, N) -> count.
+GATHER_SHAPE_LAUNCHES: dict[tuple, int] = {}
 
 # The kernel's tile (brick_conv_int8.cu): threads a block, the largest C,
 # columns a pass, brick side, halo side; a block's shared memory limit and
@@ -46,6 +48,7 @@ SM_SMEM = 233472  # an SM's shared memory, 1 KB of it reserved per block
 def reset_launches() -> None:
     LAUNCHES["brick_conv_int8"] = 0
     GATHER_LAUNCHES["brick_conv_int8_gather"] = 0
+    GATHER_SHAPE_LAUNCHES.clear()
 
 
 def takes(h_shape, w_shape) -> bool:
@@ -318,6 +321,8 @@ def brick_conv_int8_gather(q8: torch.Tensor, nbr27: torch.Tensor, w8: torch.Tens
         out = torch.ops.sps_torch.brick_conv_int8_gather(q8, nbr27, wt, scale,
                                                          out_dtype == torch.bfloat16, stream)
     GATHER_LAUNCHES["brick_conv_int8_gather"] += 1
+    key = (nbr27.shape[1], q8.shape[-1], w8.shape[-1])
+    GATHER_SHAPE_LAUNCHES[key] = GATHER_SHAPE_LAUNCHES.get(key, 0) + 1
     return out
 
 

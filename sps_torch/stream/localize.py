@@ -13,7 +13,8 @@ weighted by (1 - score)^2), and the baselines of stream/baselines.py:
 "mask" (the map-voxel overlap), "mos4d" (a 4-scan buffer), "mapmos" (the
 scan against a 30 m map crop) and "lts" (range-image windows at epsilon;
 it registers its resampled kept points). The baselines' weights are
-npz files (scripts/export_torch_assets.py writes the round-5 ones to
+the checkpoints <model>.pt of sps_torch.scripts.train_baselines or npz
+files (scripts/export_torch_assets.py writes the round-5 ones to
 sps_torch/assets/baselines_r5_<model>.npz); without them the models take
 seeded random weights.
 
@@ -43,6 +44,7 @@ from sps_torch.models.mos4d import MOS4DConfig, MOS4DNet
 from sps_torch.stream import baselines as bl
 from sps_torch.stream.engine import StreamingFilter
 from sps_torch.structs import resolve_device
+from sps_torch.utils import checkpoint
 
 FILTERS = ("sps", "sps-soft", "mask", "raw", "mos4d", "mapmos", "lts", "oracle")
 BASELINES = ("mos4d", "mapmos", "lts")
@@ -107,14 +109,23 @@ def cv_predict(poses: list[np.ndarray], k: int = 3, damp: float = 0.85) -> np.nd
 
 
 def _baseline_state_dict(weights_dir: str | None, mode: str) -> dict | None:
-    """The state_dict of baseline `mode` from the npz in `weights_dir` whose
-    name ends in `<mode>.npz`; None without a directory. Raises when the
-    directory holds no such file, or more than one."""
+    """The state_dict of baseline `mode` from `weights_dir`: its `<mode>.pt`
+    (sps_torch.scripts.train_baselines' checkpoint) or the npz whose name
+    ends in `<mode>.npz` (an export of sps_tpu's); None without a directory.
+    Raises when the directory holds neither, both, or more than one npz, so
+    that no file is picked silently."""
     if not weights_dir:
         return None
+    pt = os.path.join(weights_dir, f"{mode}.pt")
     found = sorted(glob.glob(os.path.join(weights_dir, f"*{mode}.npz")))
+    if os.path.exists(pt):
+        if found:
+            raise FileExistsError(f"{weights_dir} holds both {mode}.pt and {found}: "
+                                  "which weights to use is ambiguous")
+        return checkpoint.restore(pt)["model"]
     if len(found) != 1:
-        raise FileNotFoundError(f"want one *{mode}.npz in {weights_dir}, found {found}")
+        raise FileNotFoundError(f"want {mode}.pt or one *{mode}.npz in {weights_dir}, "
+                                f"found {found}")
     return convert.load_baseline_npz(found[0], mode)
 
 
@@ -160,7 +171,7 @@ def run_localization(cfg: Config, state_dict: dict, sequence: str, filter_mode: 
     (shared across calls) holds the registration maps and the filters; a
     cached MOS4D filter starts each call with an empty buffer, a cached
     MapMOS filter keeps counting its scans. `baseline_weights`: a directory
-    of baseline npz files (see _baseline_state_dict)."""
+    of baseline checkpoints or npz files (see _baseline_state_dict)."""
     if filter_mode not in FILTERS:
         raise ValueError(f"unknown filter {filter_mode!r}; one of {FILTERS}")
     dev = resolve_device(device)
@@ -337,7 +348,8 @@ def main(argv=None):
     ap.add_argument("--filter", dest="filter_mode", choices=FILTERS, default="sps")
     ap.add_argument("--init-noise", type=float, default=0.0)
     ap.add_argument("--baseline-weights", default=None,
-                    help="directory of the baselines' <model>.npz (e.g. sps_torch/assets); "
+                    help="directory of the baselines' <model>.pt (train_baselines) or "
+                         "<model>.npz (e.g. sps_torch/assets); "
                          "default: seeded random weights")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' for the CPU")
     args = ap.parse_args(argv)

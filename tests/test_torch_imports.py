@@ -46,7 +46,10 @@ def test_every_module_imports_with_jax_blocked():
               "stream.replay", "scripts.predict", "train", "ops.augment", "utils.checkpoint",
               "scripts.train", "data.range_image", "models.lts", "models.mos4d",
               "models.mapmos", "stream.baselines", "ops.hash", "ops.topology",
-              "parallel.comm", "parallel.spatial", "parallel.mesh", "parallel.launch"):
+              "parallel.comm", "parallel.spatial", "parallel.mesh", "parallel.launch",
+              "scripts.train_baselines", "scripts.calibrate_threshold", "scripts.loc_experiment",
+              "scripts.loc_calibrate_ate", "scripts.loc_pipeline",
+              "scripts.check_nclt_headroom"):
         assert f"sps_torch.{m}" in mods, m
 
 
@@ -160,3 +163,39 @@ def test_assemble_batch_stays_on_its_inputs_device():
                                       torch.rand(20, 3), cfg)
     assert pb.xyz.device.type == "cpu" and pb.xyz.shape == (24, 3)
     assert all(v.device.type == "cpu" for v in aux.values())
+
+
+@pytest.mark.parametrize("entry", ["train_mos4d", "train_mapmos", "train_lts",
+                                   "train_baselines", "calibrate_threshold", "loc_experiment",
+                                   "loc_calibrate_ate", "loc_pipeline", "check_nclt_headroom",
+                                   "headroom"])
+def test_workflow_scripts_default_to_the_card(entry, tmp_path):
+    """The baseline trainers and the workflow CLIs run on the card unless
+    asked for the CPU: with no card they raise before reading any data."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sps_torch import config
+    from sps_torch.scripts import (calibrate_threshold, check_nclt_headroom, loc_calibrate_ate,
+                                   loc_experiment, loc_pipeline, train_baselines)
+
+    cfg = config.load(os.path.join(_ROOT, "config", "config_loc.yaml"), data_root=str(tmp_path))
+    pts = np.zeros((10, 4), np.float32)
+    out = str(tmp_path / "out")
+    call = {
+        "train_mos4d": lambda: train_baselines.train_mos4d(cfg, [pts] * 5, [np.eye(4)] * 5, True,
+                                                           1, 4, 8, out, 0),
+        "train_mapmos": lambda: train_baselines.train_mapmos(cfg, [pts], [np.eye(4)], pts[:, :3],
+                                                             1, 8, 8, out, 0),
+        "train_lts": lambda: train_baselines.train_lts(cfg, [pts], 1, out, 0),
+        "train_baselines": lambda: train_baselines.main(["--data", str(tmp_path)]),
+        "calibrate_threshold": lambda: calibrate_threshold.main(["-w", "x.npz"]),
+        "loc_experiment": lambda: loc_experiment.main(["--out", out]),
+        "loc_calibrate_ate": lambda: loc_calibrate_ate.main(["--out", out]),
+        "loc_pipeline": lambda: loc_pipeline.main(["--out", out]),
+        "check_nclt_headroom": lambda: check_nclt_headroom.main([]),
+        "headroom": lambda: check_nclt_headroom.headroom(cfg, pts[:, :3], np.zeros((1, 8, 3)),
+                                                         np.ones((1, 8), bool)),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert not os.path.exists(out)
