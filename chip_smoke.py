@@ -167,7 +167,7 @@ Phases, each of which raises (and exits non-zero) on failure:
               memory, launch counts (21 launches of the int8 gather form a
               scan with INT8 on, none else), a profile of 4 scans (kernel ms
               and launches a scan, the sps.hash.build / sps.hash.lookup
-              ranges), the probe loops' rounds in one scan by kind, and with
+              ranges, sps.stage.topo and sps.model), the probe loops' rounds in one scan by kind, and with
               INT8 on every int8 conv of a scan bit for bit against its plain
               version.
   13. zband levels and atlas forms - (13a) phase 4's path at
@@ -223,6 +223,28 @@ Phases, each of which raises (and exits non-zero) on failure:
               scan, peak memory; the gather form at those brick counts bit
               for bit against its plain version, timed beside its bound,
               and the C = 192 split at L3 bit-equal to one launch.
+  16. measurement tools - sps_torch/scripts/ at BLT scale: (16a)
+              measure_occupancy at config.yaml as shipped over
+              bench_world's 24 scans: each scan's occupied bricks / rows
+              per level within that scan's quantization moves of sps_tpu's
+              (sps_torch/assets/occupancy_pin.npz; a point that dividing by
+              the voxel size and multiplying by its reciprocal put in
+              different voxels moves a count by at most one), no overflow;
+              (16b) measure_topo_reuse at the pin's depth (16 scans a step
+              of 0.2 / 1.0 / 6.5 m, TOPO_EVERY 8): each scan's topology
+              misses within quantization_bound of sps_tpu's
+              (topo_reuse_pin.npz), the means and maxima beside
+              exp_results/topo_reuse.json's; (16c) profile_stream at
+              config.yaml as shipped, then with CONV_MODE zband, 8 scans
+              each and the fused program: the stages' p50, kernel ms and
+              launches, the top kernels; the stages' scores bit-equal to a
+              StreamingFilter rebuild of the scan; brick_conv_int8_gather
+              10 launches a UNet call (shipped), zband_conv on wgmma_k5 1
+              and zband_conv_fused on wgmma 2 (zband), no other; (16d)
+              measure_sp_scaling at sp = 2, one scan, all-gather and ghost
+              (ghost_frac 0.5): collectives and bytes a scan, no ghost
+              overflow, the ranks' scores equal, sps_tpu's HLO counts
+              beside, and the analytic NCLT table.
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -772,25 +794,11 @@ def phase_int8_gather(card, bricks):
 
 def blt_scale_scans(n_scans, ns, traj_step=0.2, extent=50.0):
     """BLT-scale synthetic world (~1.2M-point map) and n_scans scans taken
-    traj_step metres apart along a loop, padded to ns points."""
-    from sps_torch.data import synthetic
+    traj_step metres apart along a loop, padded to ns points: the
+    benchmark's world (sps_torch.data.bench_world)."""
+    from sps_torch.data import bench_world
 
-    rng = np.random.default_rng(0)
-    stable = synthetic.make_world(seed=0, extent=extent, n_stable=120,
-                                  ground_points=1_200_000)
-    clutter = synthetic._boxes(rng, 40, 0.8 * extent).astype(np.float32)
-    scans = np.zeros((n_scans, ns, 3), np.float32)
-    labels = np.zeros((n_scans, ns), np.float32)
-    valids = np.zeros((n_scans, ns), bool)
-    radius = 0.5 * extent
-    for i in range(n_scans):
-        ang = (traj_step / radius) * i
-        pose_xy = radius * np.array([np.cos(ang), np.sin(ang)])
-        pts, lab = synthetic.sample_scan(rng, stable, clutter, pose_xy,
-                                         n_rays=360 * 24, max_r=30.0)
-        k = min(len(pts), ns)
-        scans[i, :k], labels[i, :k], valids[i, :k] = pts[:k], lab[:k], True
-    return stable, scans, labels, valids
+    return bench_world.make_data(ns, n_scans, extent=extent, traj_step=traj_step)
 
 
 def phase_parity():
@@ -2763,8 +2771,10 @@ def phase_engines_parity(card, shipped, sd, stable, data):
 
 def engine_profile(filt, data, card, label, n=4):
     """torch.profiler over n scans of a hash engine: kernel ms and launches a
-    scan, device busy share, and the sps.hash.build / sps.hash.lookup ranges
-    (host ms, kernel ms and calls a scan)."""
+    scan, device busy share, and the sps.hash.build / sps.hash.lookup /
+    sps.stage.topo / sps.model ranges (host ms, kernel ms and calls a scan).
+    The pyramid is built in sps.stage.topo, outside sps.model; their sum,
+    "model + pyramid", is the whole of the rebuild after stage 1."""
     scans, valids, labels = data
     pose = np.eye(4, dtype=np.float32)
     n = min(n, len(scans))
@@ -2772,16 +2782,20 @@ def engine_profile(filt, data, card, label, n=4):
     busy = sum(_device_us(e) for e in kernels)
     out = dict(kernel_ms=busy / n / 1e3, launches=sum(e.count for e in kernels) / n,
                busy=busy / wall_us, wall_ms=wall_us / n / 1e3)
-    for key in ("sps.hash.build", "sps.hash.lookup", "sps.model"):
+    keys = ("sps.hash.build", "sps.hash.lookup", "sps.stage.topo", "sps.model")
+    for key in keys:
         r = ranges.get(key, dict(count=0, host_us=0.0, kernel_us=0.0, span_us=0.0))
         out[key] = dict(calls=r["count"] / n, host_ms=r["host_us"] / n / 1e3,
                         kernel_ms=r["kernel_us"] / n / 1e3, span_ms=r["span_us"] / n / 1e3)
+    out["model_and_pyramid_kernel_ms"] = (out["sps.stage.topo"]["kernel_ms"]
+                                          + out["sps.model"]["kernel_ms"])
     log(f"  profile ({label}, {n} scans) [{card}]: kernels {out['kernel_ms']:.2f} ms and "
         f"{out['launches']:.0f} launches a scan, device busy {100 * out['busy']:.1f}%, wall "
         f"{out['wall_ms']:.2f} ms a scan; " + "; ".join(
             f"{k} x{out[k]['calls']:.0f}: host {out[k]['host_ms']:.2f} ms, kernels "
             f"{out[k]['kernel_ms']:.2f} ms, span {out[k]['span_ms']:.2f} ms"
-            for k in ("sps.hash.build", "sps.hash.lookup", "sps.model")) + " a scan")
+            for k in keys) + f" a scan; model + pyramid kernels "
+        f"{out['model_and_pyramid_kernel_ms']:.2f} ms a scan")
     for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
         log(f"    kernel {_device_us(e) / n / 1e3:8.3f} ms a scan x{e.count // n:5d}  "
             f"{e.key[:90]}")
@@ -3028,26 +3042,14 @@ FORM_FIELDS = ("nbr27", "parent", "oct", "child", "parent_rows", "brick_of_row",
 
 
 def cpu_scan_grid(filt, scan, valid):
-    """The rebuild program's stride-1 grid of a scan, on the CPU
-    (StreamingFilter._rebuild_atlas's steps: pose, quantize, voxelize, the
-    map-overlap bit): (grid, point2slot, t_idx, valid)."""
+    """The rebuild program's stride-1 grid of a scan on the filter's device
+    (the CPU's here; StreamingFilter.stage_vox: pose, quantize, voxelize,
+    the map-overlap bit): (grid, point2slot, t_idx, valid)."""
     import torch
 
-    from sps_torch.ops import atlas as atl
-    from sps_torch.ops import brick as bk
-
-    scfg = filt.sps_cfg
-    x, v = torch.as_tensor(scan)[None], torch.as_tensor(valid)[None]
-    vflat, coords, bidx, _ = filt._posed(x, v, torch.eye(4)[None])
-    ones = torch.ones(vflat.shape[0], dtype=torch.int32)
-    grid, p2s = atl.voxelize_bricks(coords, bidx, ones, vflat, num_time=2,
-                                    brick_capacity=scfg.caps.bricks[0],
-                                    brick_side=scfg.brick_side, extent=scfg.atlas_extent)
-    bvalid = torch.arange(scfg.caps.bricks[0]) < grid.num_bricks
-    mrow = atl.atlas_rows(filt.map_grid, torch.where(bvalid, 0, -1), grid.coords[:, 1:])
-    mocc = bk.take_rows(filt.map_grid.occ, mrow)[..., 0]
-    occ = torch.stack([grid.occ[..., 1] * mocc, grid.occ[..., 1]], dim=-1)
-    return grid._replace(occ=occ), p2s, ones, vflat
+    vx = filt.stage_vox(torch.as_tensor(scan)[None], torch.as_tensor(valid)[None],
+                        torch.eye(4)[None])
+    return vx.grid, vx.p2v, vx.t_idx, vx.valid
 
 
 def phase_atlas_forms(card, shipped, sd, stable, data):
@@ -3218,7 +3220,7 @@ def sp_rank(rank, world, shipped, sd, stable, data):
     for label, cfg, frac in sp_runs(shipped):
         filt = StreamingFilter(cfg, sd, stable, mesh=mesh, sp_ghost_frac=frac)
         reset_counts()
-        comm.HOST_STAGED["copies"] = 0
+        comm.reset_counts()
         scores, stats, lat = run_filter(filt, data, len(data[0]))
         out[label] = dict(scores=scores, stats=stats, lat=lat, launches=read_counts(),
                           host_staged=comm.HOST_STAGED["copies"])
@@ -3376,7 +3378,7 @@ def dp_rank(rank, world, shipped, stable, data):
              for k, v in (("xyz", data[0]), ("valid", data[1]), ("label", data[2]))}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    comm.HOST_STAGED["copies"] = 0
+    comm.reset_counts()
     reset_counts()
     ms, losses = [], []
     for _ in range(3):
@@ -3810,6 +3812,177 @@ def phase_nclt(card):
             "profile": prof, "calls": calls, "a_scan": scan_sums, "caps": list(caps)}
 
 
+# Phase 16: the measurement tools at BLT scale, against sps_tpu's pins.
+OCC_PIN = os.path.join(HERE, "sps_torch", "assets", "occupancy_pin.npz")
+TOPO_PIN = os.path.join(HERE, "sps_torch", "assets", "topo_reuse_pin.npz")
+PROFILE_SCANS = 8
+PROFILE_TOP = 8
+
+
+def pin_inputs(what, points, pin_valid, pin_sha):
+    """Each scan's valid points against the pin's: their count and
+    fingerprint (bench_world.fingerprint, the sha256 of the f32 bytes)."""
+    from sps_torch.data.bench_world import fingerprint
+
+    if ([len(p) for p in points] != list(pin_valid)
+            or [fingerprint(p) for p in points] != list(pin_sha)):
+        raise AssertionError(f"{what}: the scans differ from the pin's")
+
+
+def phase_occupancy(card, shipped):
+    """16a: measure_occupancy over bench_world's 24 scans against sps_tpu's
+    pin; a scan's count may differ by its quantization moves."""
+    from sps_torch.data import bench_world
+    from sps_torch.scripts import measure_occupancy
+    from sps_torch.scripts import measure_topo_reuse as mtr
+
+    log("phase 16a: measure_occupancy at config.yaml as shipped (bench_world's 24 scans) "
+        "against sps_tpu's pin")
+    with np.load(OCC_PIN) as z:
+        pin = {k: z[k] for k in z.files}
+    meta = json.loads(str(pin["meta"]))
+    t = time.time()
+    stable, scans, _, valids = bench_world.make_data(shipped.tpu.scan_points, meta["scans"],
+                                                     extent=meta["extent"])
+    pts = [s[v] for s, v in zip(scans, valids)]
+    pin_inputs("16a", pts, pin["valid"], pin["xyz_sha"])
+    res = measure_occupancy.occupancy(shipped, stable, scans, valids,
+                                      log=lambda m: log(f"  {m}"))
+    moved = np.asarray([int(mtr.moved(p, shipped.voxel_size).sum()) for p in pts])
+    diff = np.abs(res["num"] - pin["num"])
+    log(f"  per-level max {res['max'].tolist()} (sps_tpu {pin['num'].max(0).tolist()}) / cap "
+        f"{res['cap'].tolist()}; points the quantizations place apart a scan {moved.tolist()}; "
+        f"largest |count - sps_tpu's| {diff.max()} (bound: the scan's moves); "
+        f"{time.time() - t:.1f} s [{card}]")
+    if res["overflow"].any() or pin["overflow"].any():
+        raise AssertionError("16a: a level overflowed")
+    if not np.array_equal(res["cap"], pin["cap"]) or (diff > moved[:, None]).any():
+        raise AssertionError(f"16a: occupancy differs from sps_tpu's beyond the moves: {diff}")
+    return dict(max=res["max"].tolist(), pin_max=pin["num"].max(0).tolist(),
+                cap=res["cap"].tolist(), max_diff=int(diff.max()), moved=moved.tolist())
+
+
+def phase_topo_reuse(card, shipped, sd):
+    """16b: measure_topo_reuse at the pin's depth against sps_tpu's misses."""
+    from sps_torch.data import bench_world
+    from sps_torch.scripts import measure_topo_reuse as mtr
+
+    log("phase 16b: measure_topo_reuse at config.yaml as shipped against sps_tpu's pin")
+    with np.load(TOPO_PIN) as z:
+        pin = {k: z[k] for k in z.files}
+    meta = json.loads(str(pin["meta"]))
+    steps, k, n = meta["steps"], meta["k"], meta["cut"]["scans"]
+    t = time.time()
+    stable = bench_world.make_data(shipped.tpu.scan_points, 24)[0]
+    res = mtr.topo_reuse(shipped, sd, stable, steps, k, n)
+    with open(os.path.join(HERE, "exp_results", "topo_reuse.json")) as f:
+        jax_json = {e["step_m"]: e for e in json.load(f)["trajectories"]}
+    out = {}
+    for step, entry in zip(steps, res["trajectories"]):
+        rows, pts = res["rows"][step], res["scans_xyz"][step]
+        pin_inputs(f"16b {step} m", pts, pin[f"valid/{step}"], pin[f"xyz_sha/{step}"])
+        miss = np.asarray([r[0] for r in rows])
+        bound = np.asarray(mtr.quantization_bound(pts, k, shipped.voxel_size,
+                                                  shipped.tpu.brick_side))
+        diff = np.abs(miss - pin[f"miss/{step}"])
+        j = jax_json[step]
+        log(f"  {step} m a scan: misses {miss.tolist()}; |misses - sps_tpu's| {diff.tolist()} "
+            f"(bounds {bound.tolist()}); mean {entry['miss_points_mean']:.1f} points "
+            f"({100 * entry['miss_frac_mean']:.2f}%), max {entry['miss_points_max']} "
+            f"({100 * entry['miss_frac_max']:.2f}%) over {entry['reuse_scans']} reuse scans; "
+            f"exp_results/topo_reuse.json (sps_tpu, 24 scans): mean "
+            f"{j['miss_points_mean']:.1f} ({100 * j['miss_frac_mean']:.2f}%), max "
+            f"{j['miss_points_max']} ({100 * j['miss_frac_max']:.2f}%)")
+        if (diff > bound).any():
+            raise AssertionError(f"16b {step} m: misses beyond the quantization bound")
+        out[step] = dict(entry, misses=miss.tolist(), max_diff=int(diff.max()),
+                         bound=bound.tolist())
+    log(f"  16b: {len(steps)} x {n} scans in {time.time() - t:.1f} s [{card}]")
+    return out
+
+
+def phase_stage_profile(card, shipped, sd):
+    """16c: profile_stream at config.yaml as shipped and with CONV_MODE
+    zband, on bench_world's first scan."""
+    import torch
+
+    from sps_torch.data import bench_world
+    from sps_torch.scripts import profile_stream
+    from sps_torch.stream.engine import StreamingFilter
+
+    log(f"phase 16c: profile_stream, config.yaml as shipped and zband, {PROFILE_SCANS} scans "
+        f"each and the fused program")
+    stable, scans, _, valids = bench_world.make_data(shipped.tpu.scan_points, 24)
+    out = {}
+    for label, cfg in (("shipped", shipped),
+                       ("zband", twin(shipped, conv_mode="zband", zband_levels=1, int8=False))):
+        reset_counts()
+        res = profile_stream.profile(cfg, sd, stable, scans[0], valids[0], n=PROFILE_SCANS,
+                                     fused=True, kernel_table=PROFILE_TOP,
+                                     log=lambda m: log(f"  {label}: {m} [{card}]"))
+        launches = read_counts()
+        calls = res["unet_calls"]
+        zband = label == "zband"
+        want = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": calls if zband else 0},
+                "zband_conv_fused": {"wmma": 0, "wgmma": 2 * calls if zband else 0,
+                                     "wgmma_k5": 0},
+                "brick_conv_int8": 0, "brick_conv_int8_gather": 0 if zband else 10 * calls}
+        log(f"  {label}: {calls} UNet calls; launches {launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"16c {label}: launches {launches}, expected {want}")
+        with torch.inference_mode():
+            filt = StreamingFilter(cfg, sd, stable)
+            s, _, stats = filt(scans[0], valids[0], np.zeros(len(valids[0]), np.float32),
+                               np.eye(4, dtype=np.float32))
+            s = s.float().cpu().numpy()
+        if not np.array_equal(s, res["scores"]) or bool(stats["overflow"]):
+            raise AssertionError(f"16c {label}: the stages' scores differ from the filter's "
+                                 f"rebuild (max {np.abs(s - res['scores']).max()})")
+        v = valids[0]
+        if not (np.isfinite(s).all() and (s[v] > 0).all() and s.max() <= 1):
+            raise AssertionError(f"16c {label}: scores outside (0, 1]")
+        total = sum(res["kernel_ms"].values())
+        log(f"  {label} [{card}]: stage p50 ms " + ", ".join(
+            f"{k} {v:.2f}" for k, v in res["p50_ms"].items()) + "; kernel ms a rebuild "
+            + ", ".join(f"{k} {v:.3f} ({res['launches'][k]:.0f} launches)"
+                        for k, v in res["kernel_ms"].items())
+            + f", {total:.3f} in all; scores bit-equal to the filter's rebuild")
+        out[label] = {k: res[k] for k in ("p50_ms", "min_ms", "first_ms", "kernel_ms",
+                                           "launches", "top", "levels", "unet_calls")}
+        out[label]["kernel_launches"] = launches
+        del filt
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_traffic(card, shipped, sd):
+    """16d: measure_sp_scaling at sp = 2 on one scan, both modes, and the
+    analytic NCLT table."""
+    from sps_torch.scripts import measure_sp_scaling as mss
+
+    log("phase 16d: measure_sp_scaling at sp = 2 (one scan, all-gather and ghost; gloo "
+        "ranks on the one card)")
+    t = time.time()
+    map_pts, sx, sv = mss.world(shipped)
+    rows = mss.measured_rows(shipped, sd, map_pts, sx, sv, widths=(2,), timeout=600.0,
+                             log=lambda m: log(f"  {m} [{card}]"))
+    nclt = mss.analytic_nclt(os.path.join(HERE, "config", "config_nclt.yaml"))
+    log(f"  the JAX script's tables, the port's numbers from this run [{card}]; sps_tpu's "
+        f"HLO counts from exp_results/sp_scaling.json:")
+    for line in mss.tables(rows, nclt, mss.reference_rows()):
+        log(f"  {line}")
+    for r in rows:
+        log(f"  sp=2 {r['mode']} [{card}]: " + ", ".join(
+            f"{k} {r[k]['count']} ({r[k]['bytes'] / 1e6:.2f} MB)"
+            for k in ("all-gather", "all-to-all", "all-reduce"))
+            + f"; {r['host_staged']} host copies; first call {r['first_call_s']} s; overflow "
+            f"{r['overflow']}; ranks' scores equal {r['scores_equal']}")
+        if r["overflow"] or not r["scores_equal"] or r["total_count"] <= 0:
+            raise AssertionError(f"16d {r['mode']}: overflow, unequal ranks or no collective")
+    log(f"  16d: {time.time() - t:.1f} s [{card}]")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3894,6 +4067,10 @@ def main() -> int:
     sp2 = phase_sp_ranks(card, shipped, sd, stable, data)
     dp2 = phase_dp_ranks(card, shipped, stable, data)
     nclt = phase_nclt(card)
+    occupancy = phase_occupancy(card, shipped)
+    topo_reuse = phase_topo_reuse(card, shipped, sd)
+    stages = phase_stage_profile(card, shipped, sd)
+    sp_traffic = phase_sp_traffic(card, shipped, sd)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -3918,6 +4095,7 @@ def main() -> int:
                                          "library_ms", "bound_ms", "bound_by", "gflop",
                                          "gbytes")}
                       for c in calls],
+            "launches_16c": stages["zband"]["kernel_launches"][name],
             **({"launches_13a": {f"zband_levels_{zl}": {"zband_conv": r["launches"]["zband_conv"],
                                                          "zband_conv_fused": r["launches"][
                                                              "zband_conv_fused"]}
@@ -3976,6 +4154,7 @@ def main() -> int:
         "offline_launches": {**{f"gate_{k}": r["launches"] for k, r in gate.items()},
                              "predict_blt": predict_blt["launches"],
                              "replay": replay["launches"]},
+        "launches_16c": stages["shipped"]["kernel_launches"]["brick_conv_int8_gather"],
         "nclt_15c": {"launches": nclt["launches"]["brick_conv_int8_gather"],
                      "launches_a_scan_by_level": nclt["int8_by_level"],
                      "bricks_caps": nclt["caps"], "calls": nclt["calls"], "a_scan": nclt["a_scan"],
@@ -4032,7 +4211,15 @@ def main() -> int:
         f"NCLT {nclt['summary']['map_points']} map points, no overflow, p50 {nclt['p50']:.2f} ms, "
         f"kernels {nclt['profile']['kernel_ms']:.2f} ms a scan, peak "
         f"{nclt['peak'] / 2**30:.2f} GiB, int8 gather {nclt['a_scan']['ms']:.3f} ms a scan "
-        f"(bound {nclt['a_scan']['bound_ms']:.3f})")
+        f"(bound {nclt['a_scan']['bound_ms']:.3f}); 16a max occupancy {occupancy['max']} / "
+        f"{occupancy['cap']} (sps_tpu {occupancy['pin_max']}); 16b mean misses a reuse scan "
+        + ", ".join(f"{k} m {v['miss_points_mean']:.0f} ({100 * v['miss_frac_mean']:.2f}%)"
+                    for k, v in topo_reuse.items())
+        + "; 16c kernel ms a rebuild by stage " + "; ".join(
+            f"{label} " + " / ".join(f"{v:.2f}" for v in r["kernel_ms"].values())
+            for label, r in stages.items())
+        + " (vox / topo / unet); 16d sp=2 MB a scan " + ", ".join(
+            f"{r['mode']} {r['total_bytes'] / 1e6:.1f}" for r in sp_traffic))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

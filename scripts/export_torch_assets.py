@@ -4,7 +4,7 @@ its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
         [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines,hash,
-                sp,dp,baseline_train,nclt]
+                sp,dp,baseline_train,nclt,occupancy,topo_reuse]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -134,10 +134,20 @@ Writes, under sps_torch/assets/:
                                   scripts/check_nclt_headroom.py's world at
                                   config_nclt.yaml, world and capacities cut
                                   for the CPU (NCLT_META lists each cut): the
-                                  world and every scan's integer stats.
+                                  world and every scan's integer stats;
+  occupancy_pin.npz               scripts/measure_occupancy.py's program
+                                  (jax_occupancy) over bench.py's 24 scans at
+                                  config.yaml as shipped: per scan and level the
+                                  occupied bricks or rows and the overflow flag,
+                                  the capacities, and each scan's valid points
+                                  and fingerprint;
+  topo_reuse_pin.npz              scripts/measure_topo_reuse.py's loop
+                                  (jax_topo_reuse) at TOPO_META's cut: per step
+                                  of 0.2 / 1.0 / 6.5 m, every scan's topology
+                                  misses, valid points and fingerprint.
 
-Runs on the CPU: ckpt, loop, train, baselines, hash, sp, dp, baseline_train and nclt in a
-few minutes each, loc ~14 min
+Runs on the CPU: ckpt, loop, train, baselines, hash, sp, dp, baseline_train, nclt and
+occupancy in a few minutes each, loc and topo_reuse ~10-15 min
 (--scans 20), parity and predict several minutes each (bf16 on XLA:CPU is slow),
 loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU).
 """
@@ -1219,15 +1229,179 @@ def export_nclt_pin():
         + f" ({time.time() - t:.0f} s)")
 
 
+# The measurement tools' pins: scripts/measure_occupancy.py's program over
+# bench.py's 24 scans at config.yaml as shipped, and
+# scripts/measure_topo_reuse.py's trajectories at a depth the CPU affords
+# (TOPO_META lists each cut; neither the UNet's width nor its arithmetic
+# changes which points a cached topology misses).
+OCC_META = {"config": "config/config.yaml", "scans": 24, "extent": 50.0}
+TOPO_META = {"config": "config/config.yaml", "steps": [0.2, 1.0, 6.5], "k": 8,
+             "cut": {"scans": 16, "narrow": LOOP_NARROW, "bf16": False, "int8": False},
+             "shipped": {"scans": 24}}
+
+
+def jax_occupancy(cfg, stable, scans, valids):
+    """scripts/measure_occupancy.py's `occupancy` program (sps_tpu, the
+    atlas engine: voxelize + overlap, the pyramid, no UNet) over the scans:
+    per scan and level (occupied bricks or rows, capacity, overflow)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu.models import spsnet
+    from sps_tpu.ops import atlas as atl
+    from sps_tpu.ops import brick as bk
+    from sps_tpu.ops import voxelize as vox
+    from sps_tpu.stream.engine import build_map_atlas
+
+    sps_cfg = cfg.sps_config(batch_size=1)
+    assert cfg.tpu.engine == "atlas", "occupancy sweep assumes the atlas engine"
+    map_grid = build_map_atlas(stable, cfg.voxel_size, cfg.tpu.brick_side)
+    n = scans.shape[1]
+    bcap = sps_cfg.caps.bricks[0]
+    vsize = cfg.voxel_size
+
+    @jax.jit
+    def occupancy(map_grid, scan_xyz, valid):
+        coords = vox.quantize(scan_xyz, vsize)
+        zeros = jnp.zeros((n,), jnp.int32)
+        ones = jnp.ones((n,), jnp.int32)
+        grid, p2s = atl.voxelize_bricks(
+            coords, zeros, ones, valid,
+            num_time=2, brick_capacity=bcap,
+            brick_side=sps_cfg.brick_side, extent=sps_cfg.atlas_extent,
+        )
+        bvalid = jnp.arange(bcap) < grid.num_bricks
+        batch0 = jnp.where(bvalid, 0, -1)
+        mrow = atl.atlas_rows(map_grid, batch0, grid.coords[:, 1:])
+        mocc = bk.take_rows(map_grid.occ, mrow)[..., 0]
+        overlap = grid.occ[..., 1] * mocc
+        occ = grid.occ.at[..., 0].set(overlap)
+        grid = grid._replace(occ=occ)
+        levels, _ = spsnet.build_levels_from_grid(grid, sps_cfg)
+        out = []
+        for l in levels:
+            gg = l.grid
+            if hasattr(gg, "num_rows"):
+                out.append((gg.num_rows, gg.occ.shape[0], gg.overflow))
+            else:
+                out.append((gg.num_bricks, gg.coords.shape[0],
+                            getattr(gg, "overflow", jnp.zeros((), bool))))
+        return out
+
+    return np.asarray([[(int(a), int(b), bool(c)) for a, b, c in jax.device_get(
+        occupancy(map_grid, jnp.asarray(scans[i]), jnp.asarray(valids[i])))]
+        for i in range(len(scans))])
+
+
+def jax_topo_reuse(cfg, variables, stable, steps, k, n_scans, radius=25.0, n_clutter=40,
+                   clutter_extent=40.0, n_rays=360 * 24, max_r=30.0, seed=1):
+    """scripts/measure_topo_reuse.py's loop (sps_tpu's StreamingFilter at
+    TOPO_EVERY k; the trajectory's keywords are the script's constants):
+    per step, per scan (topology-miss points, valid points, the valid
+    points' fingerprint, sps_torch.data.bench_world.fingerprint)."""
+    from sps_torch.data.bench_world import fingerprint
+    from sps_tpu.data import synthetic as jsyn
+    from sps_tpu.stream.engine import StreamingFilter
+
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, topo_every=k))
+    ns = cfg.tpu.scan_points
+    filt = StreamingFilter(cfg, variables, stable)
+    rng = np.random.default_rng(seed)
+    clutter = jsyn._boxes(rng, n_clutter, clutter_extent).astype(np.float32)
+    out = {}
+    for step in steps:
+        filt.invalidate()
+        rows = []
+        for i in range(n_scans):
+            ang = (step * i) / radius
+            pose_xy = radius * np.array([np.cos(ang), np.sin(ang)])
+            pts, lab = jsyn.sample_scan(rng, stable, clutter, pose_xy, n_rays=n_rays,
+                                        max_r=max_r)
+            kk = min(len(pts), ns)
+            sx = np.zeros((ns, 3), np.float32)
+            sl = np.zeros((ns,), np.float32)
+            sv = np.zeros((ns,), bool)
+            sx[:kk], sl[:kk], sv[:kk] = pts[:kk], lab[:kk], True
+            _, _, stats = filt(sx, sv, sl, np.eye(4, dtype=np.float32))
+            rows.append((int(stats["topo_miss_points"]), int(sv.sum()), fingerprint(sx[sv])))
+        out[step] = rows
+    return out
+
+
+def export_occupancy_pin():
+    """sps_tpu's per-level occupancy (jax_occupancy) over bench.py's 24
+    scans at config.yaml as shipped: per scan and level the occupied bricks
+    or rows and the overflow flag, the capacities, and each scan's valid
+    points and their fingerprint (sps_torch.data.bench_world.fingerprint)."""
+    import bench
+    from sps_torch.data.bench_world import fingerprint
+    from sps_tpu import config as jcfg_mod
+
+    meta = OCC_META
+    t = time.time()
+    cfg = jcfg_mod.load(os.path.join(HERE, meta["config"]), data_root="/tmp")
+    stable, scans, _, valids = bench._make_data(cfg, meta["scans"], extent=meta["extent"])
+    res = jax_occupancy(cfg, stable, scans, valids)
+    out = {"meta": np.asarray(json.dumps(meta)), "num": res[..., 0].astype(np.int64),
+           "cap": res[0, :, 1].astype(np.int64), "overflow": res[..., 2].astype(bool),
+           "valid": valids.sum(1),
+           "xyz_sha": np.asarray([fingerprint(s[v]) for s, v in zip(scans, valids)])}
+    np.savez_compressed(os.path.join(ASSETS, "occupancy_pin.npz"), **out)
+    log(f"occupancy pin: max {out['num'].max(0).tolist()} / cap {out['cap'].tolist()}, "
+        f"overflow scans {np.flatnonzero(out['overflow'].any(1)).tolist()} "
+        f"({time.time() - t:.0f} s)")
+
+
+def export_topo_reuse_pin():
+    """sps_tpu's topology misses (jax_topo_reuse) on measure_topo_reuse.py's
+    trajectories at TOPO_META's cut, with the port's seeded weights (seed 0):
+    per step the misses, valid points and fingerprints of every scan."""
+    import bench
+    from sps_tpu import config as jcfg_mod
+    from sps_torch.models import spsnet as tsps
+    from sps_torch import config as tcfg_mod
+
+    meta = TOPO_META
+    t = time.time()
+    cut = meta["cut"]
+
+    def narrowed(mod):
+        cfg = mod.load(os.path.join(HERE, meta["config"]), data_root="/tmp")
+        cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, bf16=cut["bf16"],
+                                                               int8=cut["int8"]))
+
+        class Narrow(type(cfg)):
+            def sps_config(self, batch_size=None):
+                s = super().sps_config(batch_size)
+                return dataclasses.replace(s, unet=dataclasses.replace(s.unet, **cut["narrow"]))
+
+        return Narrow(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+
+    cfg = narrowed(jcfg_mod)
+    stable = bench._make_data(cfg, 24)[0]
+    sd = tsps.init_state_dict(narrowed(tcfg_mod).sps_config(1), seed=0)
+    res = jax_topo_reuse(cfg, flax_tree(sd), stable, meta["steps"], meta["k"], cut["scans"])
+    out = {"meta": np.asarray(json.dumps(meta))}
+    for step, rows in res.items():
+        out[f"miss/{step}"] = np.asarray([r[0] for r in rows], np.int64)
+        out[f"valid/{step}"] = np.asarray([r[1] for r in rows], np.int64)
+        out[f"xyz_sha/{step}"] = np.asarray([r[2] for r in rows])
+    np.savez_compressed(os.path.join(ASSETS, "topo_reuse_pin.npz"), **out)
+    log("topo reuse pin: " + "; ".join(f"{step} m misses {out[f'miss/{step}'].tolist()}"
+                                       for step in meta["steps"])
+        + f" ({time.time() - t:.0f} s)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
     ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train,"
-                                      "baselines,loc_baselines,hash,sp,dp,baseline_train,nclt",
+                                      "baselines,loc_baselines,hash,sp,dp,baseline_train,nclt,"
+                                      "occupancy,topo_reuse",
                     help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
                          "predict, train, baselines, loc_baselines, hash, sp, dp, "
-                         "baseline_train, nclt")
+                         "baseline_train, nclt, occupancy, topo_reuse")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -1260,6 +1434,10 @@ def main(argv=None):
         export_baseline_train_pin()
     if "nclt" in parts:
         export_nclt_pin()
+    if "occupancy" in parts:
+        export_occupancy_pin()
+    if "topo_reuse" in parts:
+        export_topo_reuse_pin()
 
 
 if __name__ == "__main__":

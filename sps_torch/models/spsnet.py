@@ -119,14 +119,14 @@ class SPSModel(nn.Module):
         self.cfg = cfg
         self.MinkUNet = MinkUNet(cfg.unet, generator)
 
-    def forward(self, pb: PointBatch | None = None, *, grid=None, levels=None, p2v=None,
+    def forward(self, pb: PointBatch | None = None, *, levels=None, p2v=None,
                 t_idx=None, valid=None, point_dist=None):
         """Returns (scores, aux): (N,) sigmoid stability scores (0 for padded
         points) and a dict with the per-level overflow flags. With `pb` the
         model voxelizes the batch itself (t_idx, valid and point_dist from
-        it); with `grid` (a stride-1 grid whose occupancy already holds the
-        map bit) it builds the pyramid from it; otherwise levels give a
-        prebuilt pyramid; p2v/t_idx/valid go with grid and levels.
+        it); otherwise levels give a prebuilt pyramid (build_levels_from_grid
+        of a stride-1 grid whose occupancy already holds the map bit), and
+        p2v/t_idx/valid go with them.
         point_dist: (N,) distance to the map per point (the dist_feature
         input; 0 when None). Under spatial sharding (cfg.unet.sp_axis) the
         replicated pyramid is sliced to this rank's blocks, and the UNet's
@@ -138,8 +138,6 @@ class SPSModel(nn.Module):
             t_idx, valid = pb.t, pb.valid
             if point_dist is None:
                 point_dist = pb.dist
-        elif grid is not None:
-            levels, overflow = build_levels_from_grid(grid, cfg)
         else:
             overflow = torch.stack([lv.grid.overflow for lv in levels])
         sp = cfg.unet.sp_axis

@@ -20,6 +20,12 @@ and every collective of a CUDA tensor on a gloo group copies it to the
 host and back. That is chosen by
 the group's backend, never as a reaction to a failure, and counted in
 HOST_STAGED["copies"] (one a collective). On NCCL nothing is staged.
+
+COLLECTIVES counts every collective this process enters, by kind, with
+its output bytes (sps_tpu's convention for the collectives of its HLO,
+scripts/measure_sp_scaling.py::_line_bytes): an all-gather's whole
+gathered tensor, an all-to-all's and an all-reduce's tensor.
+`reset_counts()` sets both counters to 0.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ import torch.distributed as dist
 
 # Host round trips of CUDA tensors through gloo collectives.
 HOST_STAGED = {"copies": 0}
+# Collectives entered, by kind: {"count": calls, "bytes": output bytes}.
+COLLECTIVES = {kind: {"count": 0, "bytes": 0}
+               for kind in ("all-gather", "all-to-all", "all-reduce")}
 
 _GROUPS: dict = {}
 
@@ -53,6 +62,20 @@ def rank(axis: str) -> int:
     return dist.get_rank(group(axis))
 
 
+def reset_counts() -> None:
+    """Set HOST_STAGED and COLLECTIVES to 0."""
+    HOST_STAGED["copies"] = 0
+    for rec in COLLECTIVES.values():
+        rec["count"] = rec["bytes"] = 0
+
+
+def _counted(kind: str, out: torch.Tensor) -> torch.Tensor:
+    rec = COLLECTIVES[kind]
+    rec["count"] += 1
+    rec["bytes"] += out.numel() * out.element_size()
+    return out
+
+
 def _host(x: torch.Tensor, g):
     """(tensor to hand the collective, whether to copy its result back)."""
     if x.is_cuda and dist.get_backend(g) == dist.Backend.GLOO:
@@ -65,7 +88,7 @@ def _gather_raw(x: torch.Tensor, g) -> torch.Tensor:
     xs, back = _host(x, g)
     parts = [torch.empty_like(xs) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, xs, group=g)
-    out = torch.cat(parts)
+    out = _counted("all-gather", torch.cat(parts))
     return out.to(x.device) if back else out
 
 
@@ -73,6 +96,7 @@ def _all_to_all_raw(x: torch.Tensor, g) -> torch.Tensor:
     xs, back = _host(x, g)
     out = torch.empty_like(xs)
     dist.all_to_all_single(out, xs, group=g)
+    _counted("all-to-all", out)
     return out.to(x.device) if back else out
 
 
@@ -80,6 +104,7 @@ def _reduce_raw(x: torch.Tensor, g, op=dist.ReduceOp.SUM) -> torch.Tensor:
     xs, back = _host(x, g)
     xs = xs.clone() if not back else xs
     dist.all_reduce(xs, op=op, group=g)
+    _counted("all-reduce", xs)
     return xs.to(x.device) if back else xs
 
 

@@ -29,9 +29,17 @@ engines' probe loops test for pending rows on the host (ops/hash.py). Profiler r
 ("sps.rebuild" / "sps.reuse", "sps.model", and per-stage ranges inside
 MinkUNet) label the work in a torch.profiler trace; without a profiler
 they cost a few microseconds per scan.
+
+The rebuild program is three methods, one per stage, which
+sps_torch/scripts/profile_stream.py times one by one: `stage_vox` (pose,
+voxelize, map overlap), `stage_topo` (the pyramid) and `stage_unet`
+(MinkUNet, devoxelize, sigmoid), each under a range "sps.stage.vox" /
+"sps.stage.topo" / "sps.stage.unet".
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,6 +56,22 @@ from sps_torch.parallel import spatial as sp_mod
 from sps_torch.structs import resolve_device
 from sps_torch.utils import metrics as met
 from sps_torch.utils.geometry import transform_points
+
+
+class Voxelized(NamedTuple):
+    """Stage 1's output: the stride-1 grid (occupancy [map bit, scan]), the
+    point-to-slot map and the per-point inputs of stage 3, flattened over
+    the batch; the counts for the stats; the atlas engine's map occupancy
+    per scan brick (None on the hash engines)."""
+
+    grid: object
+    p2v: torch.Tensor
+    t_idx: torch.Tensor
+    valid: torch.Tensor
+    dist: torch.Tensor | None
+    n_scan: torch.Tensor
+    overlap: torch.Tensor
+    mocc: torch.Tensor | None
 
 
 def _count(occ):
@@ -181,20 +205,54 @@ class StreamingFilter:
             stats["topo_miss_points"] = miss.sum(dtype=torch.int32)
         return stats
 
-    def _rebuild(self, scan_xyz, valid, labels, poses):
-        """Full program: voxelize, overlap, build the pyramid, score. Returns
-        (scores, keep, stats, cache): the atlas engine's (levels,
-        map-occupancy) cache for the reuse program, None on the hash
-        engines."""
-        if self.engine != "atlas":
-            return self._rebuild_hash(scan_xyz, valid, labels, poses) + (None,)
-        return self._rebuild_atlas(scan_xyz, valid, labels, poses)
+    def stage_vox(self, scan_xyz, valid, poses) -> Voxelized:
+        """Stage 1 of the rebuild program: pose the scans (NB, n, 3) into the
+        map frame, voxelize them into the scan slot and set the map bit where
+        the map holds the voxel: one dense atlas gather per scan brick
+        (atlas), one map lookup per scan brick (brick) or voxel (gather)."""
+        with record_function("sps.stage.vox"):
+            if self.engine == "atlas":
+                return self._vox_atlas(scan_xyz, valid, poses)
+            return self._vox_hash(scan_xyz, valid, poses)
 
-    def _rebuild_hash(self, scan_xyz, valid, labels, poses):
-        """The gather and brick engines' program for one scan (NB = 1): the
-        scan's grid through the hash table, the overlap bit from one map
-        lookup per scan voxel (gather) or brick (brick), the pyramid built
-        by the model from the grid."""
+    def stage_topo(self, grid):
+        """Stage 2: the topology pyramid of the stage-1 grid, (levels,
+        per-level overflow)."""
+        with record_function("sps.stage.topo"):
+            return build_levels_from_grid(grid, self.sps_cfg)
+
+    def stage_unet(self, levels, vx: Voxelized):
+        """Stage 3: MinkUNet on the pyramid, devoxelized to the points, the
+        sigmoid: (scores (NB * n,), aux). "sps.model" spans the same work as
+        "sps.stage.unet": it is the name the reuse program's model call and
+        the loop's profiles read."""
+        with record_function("sps.stage.unet"), record_function("sps.model"):
+            return self.model(levels=levels, p2v=vx.p2v, t_idx=vx.t_idx, valid=vx.valid,
+                              point_dist=vx.dist)
+
+    def _vox_atlas(self, scan_xyz, valid, poses) -> Voxelized:
+        scfg = self.sps_cfg
+        bcap = scfg.caps.bricks[0]
+        nb, n = scan_xyz.shape[:2]
+        vflat, coords, batch_idx, pdist = self._posed(scan_xyz, valid, poses)
+        ones = torch.ones(nb * n, dtype=torch.int32, device=self.device)  # scan slot 1
+        grid, p2s = atl.voxelize_bricks(
+            coords, batch_idx, ones, vflat, num_time=2, brick_capacity=bcap,
+            brick_side=scfg.brick_side, extent=scfg.atlas_extent,
+        )
+        # Overlap "prune": one dense map-atlas gather per scan brick (the map
+        # atlas has a single batch slot -> query batch 0).
+        bvalid = torch.arange(bcap, device=self.device) < grid.num_bricks
+        batch0 = torch.where(bvalid, 0, -1)
+        mrow = atl.atlas_rows(self.map_grid, batch0, grid.coords[:, 1:])
+        mocc = bk.take_rows(self.map_grid.occ, mrow)[..., 0]
+        scan_occ = grid.occ[..., 1]
+        overlap = scan_occ * mocc
+        grid = grid._replace(occ=torch.stack([overlap, scan_occ], dim=-1))
+        return Voxelized(grid, p2s, ones, vflat, pdist, _count(scan_occ), overlap, mocc)
+
+    def _vox_hash(self, scan_xyz, valid, poses) -> Voxelized:
+        """The gather and brick engines' stage 1, one scan (NB = 1)."""
         if scan_xyz.shape[0] != 1:
             raise ValueError("batches of more than one scan run on the atlas engine only")
         scfg = self.sps_cfg
@@ -226,41 +284,23 @@ class StreamingFilter:
             scan_occ = grid.occ[:, 1]
             n_scan = grid.num_voxels
         grid = grid._replace(occ=torch.stack([overlap, scan_occ], dim=-1))
-        with record_function("sps.model"):
-            scores, aux = self.model(grid=grid, p2v=p2v, t_idx=ones, valid=v, point_dist=pdist)
-        keep = (scores <= self.eps) & v
-        stats = self._stats(scores, labels, v, keep, n_scan, overlap, aux["overflow"].any())
-        return scores[None], keep[None], stats
+        return Voxelized(grid, p2v, ones, v, pdist, n_scan, overlap, None)
 
-    def _rebuild_atlas(self, scan_xyz, valid, labels, poses):
-        """The atlas engine's full program; also returns the (levels,
-        map-occupancy) cache for the reuse program."""
-        scfg = self.sps_cfg
-        bcap = scfg.caps.bricks[0]
-        nb, n = scan_xyz.shape[:2]
-        vflat, coords, batch_idx, pdist = self._posed(scan_xyz, valid, poses)
-        ones = torch.ones(nb * n, dtype=torch.int32, device=self.device)  # scan slot 1
-        grid, p2s = atl.voxelize_bricks(
-            coords, batch_idx, ones, vflat, num_time=2, brick_capacity=bcap,
-            brick_side=scfg.brick_side, extent=scfg.atlas_extent,
-        )
-        # Overlap "prune": one dense map-atlas gather per scan brick (the map
-        # atlas has a single batch slot -> query batch 0).
-        bvalid = torch.arange(bcap, device=self.device) < grid.num_bricks
-        batch0 = torch.where(bvalid, 0, -1)
-        mrow = atl.atlas_rows(self.map_grid, batch0, grid.coords[:, 1:])
-        mocc = bk.take_rows(self.map_grid.occ, mrow)[..., 0]
-        overlap = grid.occ[..., 1] * mocc
-        occ = torch.stack([overlap, grid.occ[..., 1]], dim=-1)
-        levels, lvl_overflow = build_levels_from_grid(grid._replace(occ=occ), scfg)
-        with record_function("sps.model"):
-            scores, aux = self.model(levels=levels, p2v=p2s, t_idx=ones, valid=vflat,
-                                     point_dist=pdist)
-        keep = (scores <= self.eps) & vflat
-        stats = self._stats(scores, labels, vflat, keep, _count(occ[..., 1]), overlap,
+    def _rebuild(self, scan_xyz, valid, labels, poses):
+        """Full program, the three stages in turn. Returns (scores, keep,
+        stats, cache): the atlas engine's (levels, map-occupancy) cache for
+        the reuse program, None on the hash engines."""
+        vx = self.stage_vox(scan_xyz, valid, poses)
+        levels, lvl_overflow = self.stage_topo(vx.grid)
+        scores, aux = self.stage_unet(levels, vx)
+        keep = (scores <= self.eps) & vx.valid
+        atlas = self.engine == "atlas"
+        stats = self._stats(scores, labels, vx.valid, keep, vx.n_scan, vx.overlap,
                             aux["overflow"].any() | lvl_overflow.any(),
-                            torch.zeros_like(vflat))
-        return scores.reshape(nb, n), keep.reshape(nb, n), stats, (levels, mocc)
+                            torch.zeros_like(vx.valid) if atlas else None)
+        nb = scan_xyz.shape[0]
+        cache = (levels, vx.mocc) if atlas else None
+        return scores.reshape(nb, -1), keep.reshape(nb, -1), stats, cache
 
     def _reuse(self, levels, mocc, scan_xyz, valid, labels, poses):
         """Cached-topology program: one atlas gather per point plus the

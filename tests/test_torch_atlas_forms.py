@@ -219,6 +219,7 @@ def test_streaming_filter_forms(form):
         mocc = tbk.take_rows(filt.map_grid.occ, mrow)[..., 0]
         occ = torch.stack([grid.occ[..., 1] * mocc, grid.occ[..., 1]], dim=-1)
         with torch.inference_mode():
-            want, _ = model(grid=grid._replace(occ=occ), p2v=p2s, t_idx=ones, valid=v)
+            levels = tsps.build_levels_from_grid(grid._replace(occ=occ), model.cfg)[0]
+            want, _ = model(levels=levels, p2v=p2s, t_idx=ones, valid=v)
         np.testing.assert_allclose(scores.numpy(), want.numpy(), rtol=0, atol=1e-6)
         assert bool((scores[v] > 0).all()) and bool((keep == ((scores <= cfg.threshold) & v)).all())

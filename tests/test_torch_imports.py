@@ -1,5 +1,6 @@
 """The port stands alone: sps_torch and chip_smoke.py import nothing of JAX,
-flax or sps_tpu, and the port's entry points default to the card."""
+flax or sps_tpu (nor bench.py, nor click, which the card's machine lacks),
+and the port's entry points default to the card."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sps_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "sps_tpu", "bench", "click")
 
 
 def _port_files():
@@ -49,7 +50,10 @@ def test_every_module_imports_with_jax_blocked():
               "parallel.comm", "parallel.spatial", "parallel.mesh", "parallel.launch",
               "scripts.train_baselines", "scripts.calibrate_threshold", "scripts.loc_experiment",
               "scripts.loc_calibrate_ate", "scripts.loc_pipeline",
-              "scripts.check_nclt_headroom"):
+              "scripts.check_nclt_headroom", "data.bench_world", "utils.profiling",
+              "scripts.profile_stream", "scripts.measure_occupancy",
+              "scripts.measure_topo_reuse", "scripts.make_synthetic_data",
+              "scripts.measure_sp_scaling"):
         assert f"sps_torch.{m}" in mods, m
 
 
@@ -168,15 +172,20 @@ def test_assemble_batch_stays_on_its_inputs_device():
 @pytest.mark.parametrize("entry", ["train_mos4d", "train_mapmos", "train_lts",
                                    "train_baselines", "calibrate_threshold", "loc_experiment",
                                    "loc_calibrate_ate", "loc_pipeline", "check_nclt_headroom",
-                                   "headroom"])
+                                   "headroom", "profile_stream", "measure_occupancy",
+                                   "measure_topo_reuse", "measure_sp_scaling", "occupancy",
+                                   "topo_reuse", "profile"])
 def test_workflow_scripts_default_to_the_card(entry, tmp_path):
-    """The baseline trainers and the workflow CLIs run on the card unless
-    asked for the CPU: with no card they raise before reading any data."""
+    """The baseline trainers, the workflow CLIs and the measurement tools run
+    on the card unless asked for the CPU: with no card they raise before
+    reading any data."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     from sps_torch import config
     from sps_torch.scripts import (calibrate_threshold, check_nclt_headroom, loc_calibrate_ate,
-                                   loc_experiment, loc_pipeline, train_baselines)
+                                   loc_experiment, loc_pipeline, measure_occupancy,
+                                   measure_sp_scaling, measure_topo_reuse, profile_stream,
+                                   train_baselines)
 
     cfg = config.load(os.path.join(_ROOT, "config", "config_loc.yaml"), data_root=str(tmp_path))
     pts = np.zeros((10, 4), np.float32)
@@ -195,6 +204,15 @@ def test_workflow_scripts_default_to_the_card(entry, tmp_path):
         "check_nclt_headroom": lambda: check_nclt_headroom.main([]),
         "headroom": lambda: check_nclt_headroom.headroom(cfg, pts[:, :3], np.zeros((1, 8, 3)),
                                                          np.ones((1, 8), bool)),
+        "profile_stream": lambda: profile_stream.main(["--scans", "1"]),
+        "measure_occupancy": lambda: measure_occupancy.main([]),
+        "measure_topo_reuse": lambda: measure_topo_reuse.main(["--out", out]),
+        "measure_sp_scaling": lambda: measure_sp_scaling.main(["--out", out]),
+        "occupancy": lambda: measure_occupancy.occupancy(cfg, pts[:, :3], np.zeros((1, 8, 3)),
+                                                         np.ones((1, 8), bool)),
+        "topo_reuse": lambda: measure_topo_reuse.topo_reuse(cfg, {}, pts[:, :3]),
+        "profile": lambda: profile_stream.profile(cfg, {}, pts[:, :3], np.zeros((8, 3)),
+                                                  np.ones(8, bool)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
