@@ -15,12 +15,19 @@ Phases, each of which raises (and exits non-zero) on failure:
               and without residual and relu), at ragged shapes of the
               wgmma_k5 route (zband_conv_k5_sm90.cu: B 1, 3, 5; the stem's
               band-packed weight and random non-band weights; C 24, 16, 8;
-              N 128, 256) and at the main path's full-width shapes, in f32
-              (TF32 off; rtol/atol 1e-4) and bf16 (max error within 2e-2 of
-              the output's max-abs); print each call's route; time the
-              kernel, the WMMA kernel on the same operands where the call
-              takes a wgmma route (also at K3's shape), the plain version
-              and F.conv2d (CUDA events, median of 20);
+              N 128, 256), at ragged shapes of the wgmma_f32 route
+              (zband_conv_tf32x3_sm90.cu, f32 on 3xTF32 wgmma: B 1, 3, 5;
+              k 3 and the k = 5 stem) and at the main path's full-width
+              shapes, in f32 (TF32 off; rtol/atol 1e-4) and bf16 (max error
+              within 2e-2 of the output's max-abs); print each call's
+              route; time the kernel, the WMMA kernel on the same operands
+              where the call takes a wgmma route (also at K3's shape), the
+              plain version and F.conv2d (CUDA events, median of 20), in
+              bf16 and, on the wgmma_f32 route, in f32 at the stem, both
+              block8 convs and K3 beside both f32 bounds (3xTF32 on the
+              tensor cores; an FMA loop at the f32 peak); and the bf16
+              C = 48 stem of DIST_FEATURE (WMMA route) beside its bound and
+              F.conv2d;
               Then the int8 brick conv (brick_conv_int8.cu) against its
               plain version bit for bit, bf16 and f32 outputs, at the nine
               shapes of the shipping path's ten int8 convs (full B), at
@@ -54,13 +61,15 @@ Phases, each of which raises (and exits non-zero) on failure:
               weights, 10 BLT-scale synthetic scans at 0.2 m steps; checks
               overflow, scores and launch counts per route (both block8
               convs on wgmma, the k = 5 stem on wgmma_k5, no int8 conv),
-              prints latencies; then the same scans in f32: max |dscore|
-              and keep flips of bf16 against f32 (bound 0.05);
+              prints latencies; then the same scans in f32 (the stem and
+              both block8 convs on wgmma_f32, counted): max |dscore| and
+              keep flips of bf16 against f32 (bound 0.05);
   5. microbench - K3's path: sps_torch/scripts/microbench_zband.py at
               B = 11264, bs = 8, TC = 16, bf16 then f32 (TF32 off): every
               L0 conv variant timed and held against the halo variant, the
               zband_conv kernel at k = 3 against its plain version, K3's
-              launches counted over the bf16 run, all on the wgmma route;
+              launches counted over the bf16 run, all on the wgmma route
+              (the f32 run's on wgmma_f32);
   6. shipping - the shipping path: StreamingFilter at config/config.yaml
               as shipped (CONV_MODE halo, INT8, HEAD_FOLD, bf16), the same
               weights and scans as phase 4 and its checks; the gather form
@@ -268,12 +277,18 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Dense H100 SXM peaks (NVIDIA data sheet): bf16 tensor cores, HBM3.
+# Dense H100 SXM peaks (NVIDIA data sheet): bf16 tensor cores, HBM3; TF32
+# tensor cores (the wgmma_f32 route runs three TF32 products a multiply-add)
+# and f32 outside the tensor cores (an FMA loop).
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_FLOPS = 67e12
 REPLACES = {
     "zband_conv": "sps_tpu/ops/pallas_conv.py:218",
     "zband_conv_fused": "sps_tpu/ops/pallas_conv.py:310",
+    # The f32 (BF16: false) calls of both at the shapes the wgmma_f32 route takes.
+    "zband_conv_f32": "sps_tpu/ops/pallas_conv.py:218 and :310 (f32)",
     "microbench_zmm": "scripts/microbench_pallas.py::make_pallas_conv (_zmm_kernel :85-119)",
     # No Pallas source: the XLA int8 conv of sps_tpu/ops/brick.py::brick_conv_int8 (:703);
     # the gather form also takes in the halo assembly before it (:741).
@@ -507,6 +522,27 @@ def phase_kernels(card):
         errs["zband_conv"] = max(errs["zband_conv"], check("zband_conv", c, True, tag,
                                                            "wgmma_k5"))
 
+    # The wgmma_f32 route at ragged B (not a multiple of its 4 bricks per
+    # block): k = 3 at both channel widths of L0, fused and not, one and two
+    # 128-column tiles, and the k = 5 stem (band-packed and random weights).
+    f32_ragged = [  # (k, tcin, tcout, B, fused, with_res)
+        (3, 16, 16, 1, False, False), (3, 32, 16, 3, True, False), (3, 16, 32, 5, True, True),
+        (3, 32, 32, 3, False, False), (5, 2, 16, 5, False, False), (5, 2, 32, 3, False, False),
+    ]
+    errs["zband_conv_f32"] = 0.0
+    for i, (k, tcin, tcout, b, fused, wres) in enumerate(f32_ragged):
+        c = make_case(k, 8, tcin, tcout, b, torch.float32, seed=60 + i, with_res=wres)
+        name = "zband_conv_fused" if fused else "zband_conv"
+        tag = f"ragged k={k} tcin={tcin} tcout={tcout} B={b} float32"
+        errs["zband_conv_f32"] = max(errs["zband_conv_f32"], check(
+            name, c, True, tag + (f" res={wres}" if fused else ""), "wgmma_f32"))
+    for i, (b, cin, n) in enumerate([(5, 24, 128), (3, 16, 256)]):
+        g = make_general(b, cin, n, seed=80 + i)
+        c = dict(g, hz=g["hz"].float(), wz=g["wz"].float())
+        errs["zband_conv_f32"] = max(errs["zband_conv_f32"], check(
+            "zband_conv", c, True, f"stem ragged B={b} C={cin} N={n} random wz float32",
+            "wgmma_f32"))
+
     # The main path's L0 shapes at B = 11264 bricks (config.yaml, batch 1):
     # the k=5 stem, block8_0.conv1 (no residual) and conv2 (with residual).
     full = [
@@ -517,14 +553,9 @@ def phase_kernels(card):
     per_call = []
     for i, (name, where, k, tcin, tcout, wres) in enumerate(full):
         route = "wgmma" if k == 3 else "wgmma_k5"
-        for dtype in (torch.float32, torch.bfloat16):
-            c = make_case(k, 8, tcin, tcout, 11264, dtype, seed=100 + i, with_res=wres)
-            tag = f"full {where} hz{tuple(c['hz'].shape)} {str(dtype)[6:]}"
-            e = check(name, c, True, tag, route if dtype == torch.bfloat16 else "wmma")
-            if dtype == torch.bfloat16:
-                errs[name] = max(errs[name], e)
-            del c
         c = make_case(k, 8, tcin, tcout, 11264, torch.bfloat16, seed=100 + i, with_res=wres)
+        errs[name] = max(errs[name], check(name, c, True, f"full {where} hz"
+                                           f"{tuple(c['hz'].shape)} bfloat16", route))
         x_nchw = c["hz"].permute(0, 3, 1, 2)
         w_oihw = c["wz"].permute(3, 2, 0, 1)
         ms = time_ms(lambda: run_kernel(name, c))
@@ -554,7 +585,77 @@ def phase_kernels(card):
         f"({k3['wmma_ms'] / k3['ms']:.2f}x)")
     del c
     torch.cuda.empty_cache()
-    return errs, per_call, k3
+    per_call_f32 = [phase_f32_call(card, errs, name, where, k, tcin, wres, seed)
+                    for name, where, k, tcin, wres, seed in (
+                        ("zband_conv", "stem conv0p1s1", 5, 2, False, 100),
+                        ("zband_conv_fused", "block8_0.conv1", 3, 32, False, 101),
+                        ("zband_conv_fused", "block8_0.conv2", 3, 16, True, 102),
+                        ("zband_conv", "K3", 3, 16, False, 110))]
+    return errs, per_call, k3, per_call_f32, phase_dist_stem(card)
+
+
+def phase_f32_call(card, errs, name, where, k, tcin, wres, seed):
+    """One f32 call at its full shape (B = 11264, TCout 16) on the
+    wgmma_f32 route: held against its plain version (rtol / atol 1e-4),
+    then the kernel, the WMMA kernel on the same operands, the plain
+    version and F.conv2d in f32 (TF32 off) timed beside the 3xTF32 bound
+    (three TF32 products a multiply-add at the TF32 peak, or the bytes), the
+    FMA-only bound (the band's FLOPs at the f32 peak) and the bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    c = make_case(k, 8, tcin, 16, 11264, torch.float32, seed=seed, with_res=wres)
+    e = check(name, c, True, f"full {where} hz{tuple(c['hz'].shape)} float32", "wgmma_f32")
+    errs["zband_conv_f32"] = max(errs["zband_conv_f32"], e)
+    x_nchw, w_oihw = c["hz"].permute(0, 3, 1, 2), c["wz"].permute(3, 2, 0, 1)
+    ms = time_ms(lambda: run_kernel(name, c))
+    wmma_ms = time_ms(lambda: run_wmma(name, c))
+    plain_ms = time_ms(lambda: run_plain(name, c))
+    library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
+    flops, nbytes = work(c, name == "zband_conv_fused")
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound_ms, fma_ms = max(t_ops, t_bytes) * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  time {name:17s} {where:15s} f32 [{card}]: kernel (wgmma_f32) {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of band), wmma kernel {wmma_ms:.3f} ms "
+        f"({wmma_ms / ms:.2f}x), plain {plain_ms:.3f} ms, F.conv2d f32 {library_ms:.3f} ms "
+        f"({library_ms / ms:.2f}x), 3xTF32 bound {bound_ms:.3f} ms ({bound_by}), FMA-only "
+        f"bound {fma_ms:.3f} ms, bytes {t_bytes * 1e3:.3f} ms ({flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e9:.3f} GB)")
+    del c, x_nchw, w_oihw
+    torch.cuda.empty_cache()
+    return dict(name=name, call=where, route="wgmma_f32", source=route_source("wgmma_f32"),
+                ms=ms, wmma_ms=wmma_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bound_fma_ms=fma_ms,
+                bound_bytes_ms=t_bytes * 1e3, gflop=flops / 1e9, gbytes=nbytes / 1e9,
+                max_abs_err=e)
+
+
+def phase_dist_stem(card):
+    """The C = 48 stem of DIST_FEATURE (k = 5, TCin 4, bf16) on the WMMA
+    route, which no wgmma kernel takes yet: held against its plain version
+    and timed beside its bound and F.conv2d."""
+    import torch
+    import torch.nn.functional as F
+
+    c = make_case(5, 8, 4, 16, 11264, torch.bfloat16, seed=120, with_res=False)
+    e = check("zband_conv", c, True, f"full DIST_FEATURE stem hz{tuple(c['hz'].shape)} bfloat16",
+              "wmma")
+    x_nchw, w_oihw = c["hz"].permute(0, 3, 1, 2), c["wz"].permute(3, 2, 0, 1)
+    ms = time_ms(lambda: run_kernel("zband_conv", c))
+    plain_ms = time_ms(lambda: run_plain("zband_conv", c))
+    library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
+    flops, nbytes = work(c, False)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  time zband_conv       DIST stem C=48  bf16 [{card}]: kernel (wmma) {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+    del c, x_nchw, w_oihw
+    torch.cuda.empty_cache()
+    return dict(call="DIST_FEATURE stem", route="wmma", source=route_source("wmma"), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                gflop=flops / 1e9, gbytes=nbytes / 1e9, max_abs_err=e)
 
 
 def int8_case(b, c, n, seed, kind="rand"):
@@ -875,6 +976,13 @@ def check_int8_parity(got, want, valid, eps):
         raise AssertionError("int8 parity: a keep decision flips beyond 1e-2 of eps")
 
 
+def routes(**counts):
+    """Launches per z-band route: `counts` where given, 0 on the others."""
+    from sps_torch.ops import zband_conv as zc
+
+    return {r: counts.get(r, 0) for r in zc.ROUTES}
+
+
 def reset_counts():
     """Set every kernel's launch count to 0."""
     from sps_torch.ops import brick_conv_int8 as bi8
@@ -989,14 +1097,19 @@ def phase_path(card, shipped, sd, stable, data, profile):
     log(f"  map atlas: {int(filt.map_grid.num_bricks)} bricks, extent {filt.map_grid.extent}")
     n_scans = len(data[0])
     run["p50"] = check_run(run, data[1], cfg.tpu.topo_every, card, "zband path")
-    check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
-                         "zband_conv_fused": {"wmma": 0, "wgmma": 2 * n_scans, "wgmma_k5": 0},
+    check_launches(run, {"zband_conv": routes(wgmma_k5=n_scans),
+                         "zband_conv_fused": routes(wgmma=2 * n_scans),
                          "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, "zband path")
     if profile:
         phase_profile(filt, data, card, "zband path")
     del filt
     torch.cuda.empty_cache()
     _, f32 = drive(twin(cfg, bf16=False), sd, stable, data)
+    # In f32 the stem and both block8 convs take the 3xTF32 wgmma kernel.
+    check_launches(f32, {"zband_conv": routes(wgmma_f32=n_scans),
+                         "zband_conv_fused": routes(wgmma_f32=2 * n_scans),
+                         "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, "zband path f32")
+    run["f32_launches"] = f32["launches"]
     run["bf16_vs_f32"] = compare_runs(run, f32, data[1], cfg.threshold, 0.05,
                                       "zband path bf16 vs f32")
     return run
@@ -1043,8 +1156,8 @@ def phase_shipping(card, shipped, sd, stable, data, profile):
     (filt, run), halo_calls = count_halo_calls(lambda: drive(shipped, sd, stable, data))
     n_scans = len(data[0])
     run["p50"] = check_run(run, data[1], shipped.tpu.topo_every, card, "shipping path")
-    check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
-                         "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+    check_launches(run, {"zband_conv": routes(),
+                         "zband_conv_fused": routes(),
                          "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans},
                    "shipping path")
     levels = filt._topo_cache[0]
@@ -1088,13 +1201,14 @@ def phase_shipping(card, shipped, sd, stable, data, profile):
     return run
 
 
-def phase_microbench(card):
+def phase_microbench(card, k3_f32):
     """K3 (the probe's Pallas conv) is the zband_conv kernel at k = 3, on
     the path of the port's microbenchmark. The microbenchmark sets TF32 off
     and raises when an output is not finite, a variant disagrees with the
     halo variant (bf16 within 2e-2, f32 within 1e-4 of the max-abs) or the
-    kernel with zband_conv_ref (as in phase 2). Returns the bf16 run, with
-    the kernel's launches in it as K3's."""
+    kernel with zband_conv_ref (as in phase 2). Returns the bf16 and f32
+    runs, with the kernel's launches in each as K3's; the f32 run's kernel
+    is printed beside phase 2's times at K3's shape (`k3_f32`)."""
     from sps_torch.ops import zband_conv as zc
     from sps_torch.scripts import microbench_zband as mb
 
@@ -1107,8 +1221,8 @@ def phase_microbench(card):
         routes = dict(zc.ROUTE_LAUNCHES["zband_conv"])
         if launches <= 0:
             raise AssertionError(f"K3 ({dtype}): the zband_conv kernel was not launched")
-        # bf16 at k = 3 qualifies for the wgmma route; f32 does not.
-        route = "wgmma" if dtype == "bf16" else "wmma"
+        # bf16 at k = 3 takes the wgmma route, f32 the 3xTF32 one.
+        route = "wgmma" if dtype == "bf16" else "wgmma_f32"
         if routes[route] != launches:
             raise AssertionError(f"K3 ({dtype}): launches per route {routes}, expected all "
                                  f"{launches} on {route}")
@@ -1119,7 +1233,13 @@ def phase_microbench(card):
         + f", plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}); "
         f"launches {r['launches']} (bf16, {r['route']}), {runs['f32']['launches']} "
         f"(f32, {runs['f32']['route']})")
-    return r
+    f = runs["f32"]
+    log(f"  f32 [{card}]: kernel-conv ({f['route']}) {f['variants']['kernel-conv']['ms']:.3f} ms, "
+        f"F.conv2d f32 {f['variants']['conv2d']['ms']:.3f} ms, plain {f['plain_ms']:.3f} ms, "
+        f"3xTF32 bound {f['bound_ms']:.3f} ms ({f['bound_by']}), FMA-only bound "
+        f"{f['bound_fma_ms']:.3f} ms; phase 2 at this shape: wgmma_f32 {k3_f32['ms']:.3f} ms, "
+        f"wmma {k3_f32['wmma_ms']:.3f} ms")
+    return runs
 
 
 def _device_us(evt) -> float:
@@ -1910,8 +2030,8 @@ def phase_predict_blt(card, shipped, sd, stable, data, profile):
             f"{[int(c['submap_overflow']) for c in calls]}")
         log(f"  predict_step ms a scan {[round(x, 2) for x in ms]}; p50 after the first "
             f"{p50:.2f} ms; peak device memory {peak / 2**30:.2f} GiB [{card}]")
-        want = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
-                "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+        want = {"zband_conv": routes(),
+                "zband_conv_fused": routes(),
                 "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans}
         check_launches(dict(launches=launches), want, "9c predict")
         if twin_launches["brick_conv_int8_gather"] != 0:
@@ -2222,9 +2342,19 @@ def phase_train_pin(card):
             out[record].update(steps_rel=prel)
         launches = read_counts()
         want_k = steps if cfg.tpu.stem_zband else 0
-        if launches["zband_conv"]["wmma"] != want_k or any(
+        # The route the f32 stem takes by zband_conv.route's rule: at the
+        # pin's narrow widths (N = 64) the WMMA kernel.
+        stems = [key for key in zc.SHAPE_LAUNCHES if key[0] == "zband_conv"]
+        stem_route = "wmma"
+        if stems:
+            _, _, hz_shape, wz_shape = stems[0]
+            stem_route = zc.route(torch.empty(hz_shape, device="cuda"),
+                                  torch.empty(wz_shape, device="cuda"), wz_shape[0],
+                                  hz_shape[1] - wz_shape[0] + 1)
+            log(f"  {record}: the stem hz{hz_shape} wz{wz_shape} takes route {stem_route}")
+        if len(stems) > 1 or launches["zband_conv"][stem_route] != want_k or any(
                 v for name, r in launches.items() if isinstance(r, dict)
-                for route, v in r.items() if (name, route) != ("zband_conv", "wmma")):
+                for route, v in r.items() if (name, route) != ("zband_conv", stem_route)):
             raise AssertionError(f"10b {record}: launches {launches}")
         out[record]["launches"] = launches["zband_conv"]
         del state
@@ -2469,15 +2599,15 @@ def phase_train_stem_zband(card, shipped, sd, stable, data, ship_run, root):
         shutil.rmtree(out_dir, ignore_errors=True)
     no_train_launches(run["calls"], "10d")
     for i, c in enumerate(run["calls"]):
-        if c["launches"]["zband_conv"] != {"wmma": 0, "wgmma": 0, "wgmma_k5": 1}:
+        if c["launches"]["zband_conv"] != routes(wgmma_k5=1):
             raise AssertionError(f"10d step {i + 1}: zband_conv launches {c['launches']}")
     torch.cuda.empty_cache()
     scfg = twin(shipped, stem_zband=True)
     filt, frun = drive(scfg, sd, stable, data)
     n_scans = len(data[0])
     frun["p50"] = check_run(frun, data[1], scfg.tpu.topo_every, card, "STEM_ZBAND filter")
-    check_launches(frun, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
-                          "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+    check_launches(frun, {"zband_conv": routes(wgmma_k5=n_scans),
+                          "zband_conv_fused": routes(),
                           "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans},
                    "STEM_ZBAND filter")
     frun["vs_halo_stem"] = compare_runs(frun, ship_run, data[1], shipped.threshold, 0.05,
@@ -2744,8 +2874,8 @@ def phase_engines_parity(card, shipped, sd, stable, data):
     for name, cfg in cfgs.items():
         (filt, run), syncs = hash_syncs(lambda: drive(cfg, sd, stable, sub))
         p50 = hash_run_checks(run, f"12b {name}")
-        check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
-                             "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+        check_launches(run, {"zband_conv": routes(),
+                             "zband_conv_fused": routes(),
                              "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, f"12b {name}")
         log(f"  {name}: p50 {p50:.2f} ms (f32), {syncs / len(sub[0]):.1f} host syncs a scan, "
             f"n_scan_voxels {[int(st['n_scan_voxels']) for st in run['stats']]}")
@@ -2881,8 +3011,8 @@ def phase_engines_times(card, shipped, sd, stable, data, gather_voxels):
     import torch
 
     log("phase 12c: the hash engines' times (config.yaml, bf16, BLT scale, full width)")
-    zero = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
-            "zband_conv_fused": {"wmma": 0, "wgmma": 0, "wgmma_k5": 0},
+    zero = {"zband_conv": routes(),
+            "zband_conv_fused": routes(),
             "brick_conv_int8": 0, "brick_conv_int8_gather": 0}
     n_scans = len(data[0])
     paths = {"gather": (twin(shipped, engine="gather", voxels=tuple(gather_voxels)), 0),
@@ -3014,9 +3144,8 @@ def phase_zband_levels(card, shipped, sd, stable, data, zband1, profile):
         rec = dict(p50=check_run(run, data[1], cfg.tpu.topo_every, card, label),
                    launches=run["launches"], shape_launches=run["shape_launches"],
                    peak=run["peak"])
-        check_launches(run, {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": n_scans},
-                             "zband_conv_fused": {"wmma": 0, "wgmma": ZBAND_LEVEL_FUSED[zl] * n_scans,
-                                                  "wgmma_k5": 0},
+        check_launches(run, {"zband_conv": routes(wgmma_k5=n_scans),
+                             "zband_conv_fused": routes(wgmma=ZBAND_LEVEL_FUSED[zl] * n_scans),
                              "brick_conv_int8": 0, "brick_conv_int8_gather": 0}, label)
         rec["vs_levels_1"] = compare_runs(run, zband1, data[1], cfg.threshold, 0.05,
                                           f"{label} vs ZBAND_LEVELS 1 (phase 4)")
@@ -3923,9 +4052,8 @@ def phase_stage_profile(card, shipped, sd):
         launches = read_counts()
         calls = res["unet_calls"]
         zband = label == "zband"
-        want = {"zband_conv": {"wmma": 0, "wgmma": 0, "wgmma_k5": calls if zband else 0},
-                "zband_conv_fused": {"wmma": 0, "wgmma": 2 * calls if zband else 0,
-                                     "wgmma_k5": 0},
+        want = {"zband_conv": routes(wgmma_k5=calls if zband else 0),
+                "zband_conv_fused": routes(wgmma=2 * calls if zband else 0),
                 "brick_conv_int8": 0, "brick_conv_int8_gather": 0 if zband else 10 * calls}
         log(f"  {label}: {calls} UNet calls; launches {launches} (expected {want})")
         if launches != want:
@@ -4022,7 +4150,7 @@ def main() -> int:
 
     shipped = config.load(os.path.join(HERE, "config", "config.yaml"))
     scfg = shipped.sps_config(1)
-    errs, per_call, k3_same_call = phase_kernels(card)
+    errs, per_call, k3_same_call, f32_calls, dist_stem = phase_kernels(card)
     int8_calls = phase_int8_kernel(card, scfg.caps.bricks)
     gather_calls = phase_int8_gather(card, scfg.caps.bricks)
     phase_parity()
@@ -4035,7 +4163,8 @@ def main() -> int:
         f"{[int(v.sum()) for v in valids]} ({time.time() - t0:.1f} s)")
     sd = spsnet.init_state_dict(scfg, seed=0)
     zband = phase_path(card, shipped, sd, stable, data, profile)
-    k3 = phase_microbench(card)
+    k3_runs = phase_microbench(card, f32_calls[-1])
+    k3 = k3_runs["bf16"]
     ship = phase_shipping(card, shipped, sd, stable, data, profile)
     loop = phase_loop(card, shipped, sd, stable, data)
     pin_scans = int(np.load(os.path.join(HERE, "sps_torch", "assets", "loc_movers_v2_pin.npz"))
@@ -4106,6 +4235,29 @@ def main() -> int:
                                          for r, rec in sp2[label].items()}
                                  for label in sp2}} if name == "zband_conv_fused" else {}),
         })
+    # The f32 calls of the zband path (phase 4's f32 run: the stem and both
+    # block8 convs a scan) on the 3xTF32 kernel: a scan's sums at the full
+    # shapes, K3 listed beside.
+    path_f32 = f32_calls[:3]
+    kernels.append({
+        "name": "zband_conv_f32", "route": "cuda", "source": route_source("wgmma_f32"),
+        "replaces": REPLACES["zband_conv_f32"],
+        "launches": sum(r["wgmma_f32"] for name, r in zband["f32_launches"].items()
+                        if isinstance(r, dict)),
+        "max_abs_err": errs["zband_conv_f32"],
+        **{key: sum(c[key] for c in path_f32)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": path_f32[0]["bound_by"],
+        "launches_by_name": {name: r["wgmma_f32"] for name, r in zband["f32_launches"].items()
+                             if isinstance(r, dict)},
+        "launches_k3_f32": k3_runs["f32"]["launches"],
+        "calls": [{k: c[k] for k in ("name", "call", "route", "source", "ms", "wmma_ms",
+                                     "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                     "bound_fma_ms", "bound_bytes_ms", "gflop", "gbytes",
+                                     "max_abs_err")}
+                  for c in f32_calls],
+        "dist_feature_stem_bf16": dist_stem,
+    })
     kc = k3["variants"]["kernel-conv"]
     times = {"ms": kc["ms"], "plain_ms": k3["plain_ms"],
              "library_ms": k3["variants"]["conv2d"]["ms"], "bound_ms": k3["bound_ms"],

@@ -23,20 +23,22 @@
 // of 32 channels staged through shared memory, with zero fill at the
 // ragged M, N and C edges (any B, any N). bf16 runs on the tensor cores
 // through WMMA (16x16x16, f32 accumulators) and, when C and N are
-// multiples of 8 (every main-path shape), loads its tiles as 16-byte
-// cp.async copies into a two-stage ring, so chunk q+1 is in flight while
-// chunk q is multiplied; other shapes take scalar loads. f32 runs as a
-// single-stage shared-memory FMA loop (it serves the f32 checks, not the
-// main path). The epilogue goes through a per-warp shared scratch tile so
+// multiples of 8, loads its tiles as 16-byte cp.async copies into a
+// two-stage ring, so chunk q+1 is in flight while chunk q is multiplied;
+// other shapes take scalar loads. f32 runs as a single-stage shared-memory
+// FMA loop. The epilogue goes through a per-warp shared scratch tile so
 // that it reads and writes global memory in row order.
 //
 // Which calls it serves: those that sps_torch/ops/zband_conv.route sends to
-// neither wgmma kernel (zband_conv_sm90.cu: bf16 at k = 3, bs = 8,
+// none of the wgmma kernels (zband_conv_sm90.cu: bf16 at k = 3, bs = 8,
 // C % 32 == 0, N % 128 == 0; zband_conv_k5_sm90.cu: the unfused bf16 stem,
-// k = 5, bs = 8, C % 8 == 0 with C <= 24): every f32 call, the C = 48 stem
-// of DIST_FEATURE, and every small or ragged-width shape of the tests.
-// It is also the yardstick that chip_smoke.py times beside both wgmma
-// kernels on the same operands.
+// k = 5, bs = 8, C % 8 == 0 with C <= 24; zband_conv_tf32x3_sm90.cu: f32 at
+// either of those shapes): the bf16 C = 48 stem of DIST_FEATURE, the f32
+// stem at narrow widths (N < 128, as in the training pin), and every small
+// or ragged shape (bs = 4, C or N off the wgmma kernels' multiples,
+// misaligned operands) in f32 and bf16. Its f32 FMA loop is the yardstick
+// for those ragged shapes. chip_smoke.py also times it beside the wgmma
+// kernels on their operands.
 //
 // What bounds it on this card: at the stem's shape (hz (11264, 12, 12, 24),
 // wz (5, 5, 24, 128)) 110.7 GFLOP against 0.263 GB moved, i.e. the tensor

@@ -25,10 +25,12 @@ sps_torch/csrc/zband_conv_sm90.cu (bf16, k = 3, bs = 8, C % 32 == 0,
 N % 128 == 0, 16-byte aligned: both block8 convs of L0 and the k = 3
 microbenchmark), "wgmma_k5" runs sps_torch/csrc/zband_conv_k5_sm90.cu
 (the unfused conv in bf16 at k = 5, bs = 8, C % 8 == 0 with C <= 24,
-N % 128 == 0, 16-byte aligned: the stem), "wmma" runs
-sps_torch/csrc/zband_conv.cu (every other shape: f32, small shapes, the
-C = 48 stem of DIST_FEATURE). No flag picks a route, and a route that
-does not take a shape raises. The library is built at first
+N % 128 == 0, 16-byte aligned: the stem), "wgmma_f32" runs
+sps_torch/csrc/zband_conv_tf32x3_sm90.cu (f32 at either of those two
+shapes, on 3xTF32 wgmma), "wmma" runs sps_torch/csrc/zband_conv.cu (every
+other shape: small and ragged shapes in f32 and bf16, the C = 48 stem of
+DIST_FEATURE). No flag picks a route, and a route that does not take a
+shape raises. The library is built at first
 use into build/torch_ext/ (one nvcc per CUDA source for sm_90a and the
 host compiler, all started together, then one link) and rebuilt when a
 source changes. A build or launch failure raises. On a CPU tensor they
@@ -48,18 +50,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 CUDA_SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_sm90.cu",
-                CSRC / "zband_conv_k5_sm90.cu", CSRC / "brick_conv_int8.cu")
+                CSRC / "zband_conv_k5_sm90.cu", CSRC / "zband_conv_tf32x3_sm90.cu",
+                CSRC / "brick_conv_int8.cu")
 OP_SOURCE = CSRC / "zband_conv_op.cpp"
 SOURCES = (*CUDA_SOURCES, OP_SOURCE)
-HEADERS = (CSRC / "sm90_wgmma.cuh",)  # included by both wgmma sources
+HEADERS = (CSRC / "sm90_wgmma.cuh",)  # included by the three wgmma sources
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 
 # Route name -> the op's route argument: 0 runs zband_conv.cu (WMMA), 1
 # zband_conv_sm90.cu (wgmma, k = 3), 2 zband_conv_k5_sm90.cu (wgmma, the
-# k = 5 stem).
-ROUTES = {"wmma": 0, "wgmma": 1, "wgmma_k5": 2}
+# k = 5 stem), 3 zband_conv_tf32x3_sm90.cu (f32 on 3xTF32 wgmma, both).
+ROUTES = {"wmma": 0, "wgmma": 1, "wgmma_k5": 2, "wgmma_f32": 3}
 ROUTE_SOURCES = {"wmma": CUDA_SOURCES[0], "wgmma": CUDA_SOURCES[1],
-                 "wgmma_k5": CUDA_SOURCES[2]}
+                 "wgmma_k5": CUDA_SOURCES[2], "wgmma_f32": CUDA_SOURCES[3]}
 
 # One count per kernel launch; incremented only where the kernel launches,
 # in total, per route, and per (kernel, route, hz shape, wz shape).
@@ -78,6 +81,12 @@ SMEM_LIMIT = 232448
 # side, 8-channel groups staged per tap (C <= 8 * K5_GROUPS), group slots
 # of a halo (two k16 steps), columns per block, bricks per block, threads.
 K5_KS, K5_BS, K5_GROUPS, K5_A_GROUPS, K5_BN, K5_BRICKS, K5_THREADS = 5, 8, 3, 4, 128, 6, 384
+
+# The wgmma_f32 route's tile (zband_conv_tf32x3_sm90.cu): channels per
+# chunk (one k8 step), columns per block, bricks per block, threads, and
+# the bytes of one tap's weight chunk (hi or lo).
+F32_CK, F32_BN, F32_BRICKS, F32_THREADS = 8, 128, 4, 256
+F32_W_TAP = F32_CK // 4 * (F32_BN // 8) * 128
 
 _loaded = False
 build_log = ""
@@ -155,19 +164,21 @@ def reset_launches() -> None:
 
 
 def route(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int, *operands) -> str:
-    """The kernel a CUDA call runs, from its shape alone. With bf16,
+    """The kernel a CUDA call runs, from its shape and dtype alone. With
     bs * bs = 64, N % 128 == 0 and every operand (hz, wz and the fused
-    call's scale, bias, occ, res) 16-byte aligned: "wgmma"
-    (zband_conv_sm90.cu) at k = 3 with C % 32 == 0; "wgmma_k5"
-    (zband_conv_k5_sm90.cu) for the unfused call (no operands) at k = 5
-    with C % 8 == 0 and 0 < C <= 24. Else "wmma" (zband_conv.cu)."""
+    call's scale, bias, occ, res) 16-byte aligned, at k = 3 with
+    C % 32 == 0 or for the unfused call (no operands) at k = 5 with
+    C % 8 == 0 and 0 < C <= 24: in bf16 "wgmma" (zband_conv_sm90.cu, k = 3)
+    or "wgmma_k5" (zband_conv_k5_sm90.cu, k = 5), in f32 "wgmma_f32"
+    (zband_conv_tf32x3_sm90.cu, both). Else "wmma" (zband_conv.cu)."""
     c = hz.shape[-1]
-    ok = (hz.dtype == torch.bfloat16 and bs * bs == 64 and wz.shape[-1] % SM90_BN == 0
+    bf16 = hz.dtype == torch.bfloat16
+    ok = ((bf16 or hz.dtype == torch.float32) and bs * bs == 64 and wz.shape[-1] % SM90_BN == 0
           and all(t.data_ptr() % 16 == 0 for t in (hz, wz, *operands) if t is not None))
     if ok and k == 3 and c % SM90_C_MULTIPLE == 0:
-        return "wgmma"
+        return "wgmma" if bf16 else "wgmma_f32"
     if ok and k == K5_KS and not operands and c % 8 == 0 and 0 < c <= 8 * K5_GROUPS:
-        return "wgmma_k5"
+        return "wgmma_k5" if bf16 else "wgmma_f32"
     return "wmma"
 
 
@@ -293,6 +304,90 @@ def k5_zero_ranges(c: int) -> list[tuple[int, int]]:
              p["w_offset"] + (t + 1) * p["w_tap_bytes"])
             for t in range(K5_KS * K5_KS) if cg < K5_GROUPS]
     return [*halos, *taps, (p["pad_offset"], p["smem_bytes"])]
+
+
+def f32_smem_plan(k: int) -> dict[str, int]:
+    """The wgmma_f32 route's shared memory at k taps a side, in bytes, with
+    the formulas of zband_conv_tf32x3_sm90.cu (Geo<k>): two halo sets (chunk
+    q % 2), each the block's bricks' hi halos then their lo halos, a brick's
+    chunk as K-major core matrices [4-channel group][pixel][4 channels]
+    (a_sbo: next 8 output rows, i.e. the next xo; a_lbo: next 4 channels);
+    then two weight sets (step % 2), each the step's taps hi then lo, a tap
+    as K-major core matrices [4-channel group][8-column group][8][4] (b_sbo:
+    next 8 columns; b_lbo: next 4 channels). A step is all 9 taps at k = 3,
+    one row of 5 at k = 5."""
+    h = 8 + k - 1
+    a_lbo = h * h * 16
+    halo = F32_CK // 4 * a_lbo
+    halo_set = 2 * F32_BRICKS * halo
+    step_taps = k * k if k == 3 else k
+    w_set = 2 * step_taps * F32_W_TAP
+    return dict(h=h, a_sbo=h * 16, a_lbo=a_lbo, halo_bytes=halo, halo_set=halo_set,
+                b_sbo=128, b_lbo=F32_BN // 8 * 128, step_taps=step_taps,
+                steps=k * k // step_taps, w_set=w_set, w_offset=2 * halo_set,
+                smem_bytes=2 * halo_set + 2 * w_set)
+
+
+def f32_descriptors(brick: int, tap: int, step: int, a_part: int, b_part: int, k: int):
+    """(start, lbo, sbo) in bytes from the buffer's base of the A and B
+    operands of one wgmma of the wgmma_f32 route at step `step` (chunk
+    step // steps): the block's brick `brick`, tap `tap` (of the step's
+    group), A's part and B's part (0 hi, 1 lo)."""
+    p = f32_smem_plan(k)
+    q, r = divmod(step, p["steps"])
+    tl = tap - r * p["step_taps"]
+    kx, ky = divmod(tap, k)
+    a = ((q % 2) * p["halo_set"] + (a_part * F32_BRICKS + brick) * p["halo_bytes"]
+         + (kx * p["h"] + ky) * 16, p["a_lbo"], p["a_sbo"])
+    b = (p["w_offset"] + (step % 2) * p["w_set"] + (b_part * p["step_taps"] + tl) * F32_W_TAP,
+         p["b_lbo"], p["b_sbo"])
+    return a, b
+
+
+def f32_halo_piece(i: int, c: int, q: int, k: int):
+    """(brick, element offset into hz from the block's first brick, byte
+    offset of the hi piece from its halo set's base, of the lo piece) of
+    the halo's 16-byte load i of chunk q (zband_conv_tf32x3_sm90.cu::
+    load_halo): 4-channel group i % 2 of pixel (i // 2) % h^2 of brick
+    i // (2 h^2)."""
+    p = f32_smem_plan(k)
+    hp = p["h"] * p["h"]
+    g, rest = i & 1, i >> 1
+    brick, pix = divmod(rest, hp)
+    off = brick * p["halo_bytes"] + g * p["a_lbo"] + pix * 16
+    return (brick, (brick * hp + pix) * c + q * F32_CK + g * 4, off,
+            F32_BRICKS * p["halo_bytes"] + off)
+
+
+def f32_split_offset(tap: int, c: int, n: int, C: int, N: int) -> int:
+    """Element offset, in the hi part, of wz[tap][c][n] in the split
+    weight (zband_tf32x3_split_kernel): [tap][8-channel chunk][n][8]; the
+    lo part follows at k^2 C N."""
+    return ((tap * (C // F32_CK) + c // F32_CK) * N + n) * F32_CK + c % F32_CK
+
+
+def f32_block_flag(tap: int, c: int, n: int, C: int, N: int) -> int:
+    """Index of the flag of the 8 x 8 block of wz[tap] holding (c, n)
+    (zband_tf32x3_split_kernel sets it where the block is not all zero)."""
+    return (tap * (C // F32_CK) + c // F32_CK) * (N // 8) + n // 8
+
+
+def f32_weight_piece(i: int, step: int, C: int, N: int, n0: int, k: int):
+    """(element offset into the split weight, byte offset from the weight
+    set's base, index of its block's flag) of the weight's 16-byte copy i
+    of step `step` (zband_conv_tf32x3_sm90.cu::load_weights): part
+    i // (256 step_taps), tap (i // 256) of the step's group, column
+    (i % 256) // 2, 4-channel group i % 2. A copy whose flag is 0 is
+    zero-filled."""
+    p = f32_smem_plan(k)
+    q, r = divmod(step, p["steps"])
+    part, rest = divmod(i, p["step_taps"] * 256)
+    tl, e = rest >> 8, rest & 255
+    n, g = e >> 1, e & 1
+    tap, c = r * p["step_taps"] + tl, q * F32_CK + 4 * g
+    src = part * k * k * C * N + f32_split_offset(tap, c, n0 + n, C, N)
+    return (src, (part * p["step_taps"] + tl) * F32_W_TAP + g * p["b_lbo"] + n * 16,
+            f32_block_flag(tap, c, n0 + n, C, N))
 
 
 def _launch(name: str, path: str, hz: torch.Tensor, *args):

@@ -5,8 +5,10 @@ Counterpart of scripts/microbench_pallas.py. The probe's Pallas kernel
 conv, whole weight resident, f32 accumulation, one cast) computes the
 function of zband_conv at k = 3, so here it is the port's hand-written
 zband_conv kernel launched at k = 3: in bf16 at the default widths its
-wgmma route (sps_torch/csrc/zband_conv_sm90.cu), in f32 and at widths
-that route does not take its wmma route (sps_torch/csrc/zband_conv.cu).
+wgmma route (sps_torch/csrc/zband_conv_sm90.cu), in f32 at the same
+widths its wgmma_f32 route (sps_torch/csrc/zband_conv_tf32x3_sm90.cu, 3xTF32
+on the tensor cores), at widths those routes do not take its wmma route
+(sps_torch/csrc/zband_conv.cu).
 
 Variants (the probe's names in brackets):
   halo         brick.brick_conv: halo + F.conv3d                 [xla-halo]
@@ -25,9 +27,12 @@ by --iters. The probe chained its calls inside one jit only to hide the
 TPU's dispatch; on the card a call of a millisecond or more hides its own
 launch. The probe's --g (the VMEM block of the Pallas grid) has no
 counterpart: a CUDA block is fixed at 256 output rows (4 bricks) on the
-wgmma route and 128 on the wmma route. TFLOP/s
+wgmma routes and 128 on the wmma route. TFLOP/s
 count dense FLOPs for halo and the band's FLOPs (zeros included) for the
-other variants; K3's bound is max(band FLOPs / peak, bytes / HBM rate).
+other variants; K3's bound is max(band FLOPs / peak, bytes / HBM rate),
+in f32 with the peak of three TF32 products a multiply-add on the tensor
+cores (the wgmma_f32 route's arithmetic), and bound_fma_ms beside it: the
+band FLOPs at the f32 peak outside the tensor cores.
 
 Every output is held against the halo variant (relative max-abs error),
 and kernel-conv also against the kernel's plain version zband_conv_ref on
@@ -53,9 +58,11 @@ from sps_torch.ops import brick as bk
 from sps_torch.ops import zband_conv as zc
 from sps_torch.structs import resolve_device
 
-# Dense H100 SXM peaks (NVIDIA data sheet): bf16 tensor cores; f32 outside
-# the tensor cores (the kernel's f32 path is an FMA loop, TF32 off); HBM3.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# Dense H100 SXM peaks (NVIDIA data sheet): bf16 tensor cores; f32 as
+# 3xTF32 on the tensor cores (495 TFLOP/s TF32, three products a
+# multiply-add); f32 outside the tensor cores (an FMA loop); HBM3.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12 / 3}
+PEAK_F32_FMA = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Bars: relative max-abs error max|got - want| / max|want| against the
@@ -186,6 +193,7 @@ def main(argv=None) -> dict:
         "gflop_band": band / 1e9, "gbytes": nbytes / 1e9,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **({"bound_fma_ms": max(band / PEAK_F32_FMA, t_bytes) * 1e3} if dt == "f32" else {}),
         "variants": {},
     }
     print(f"B={b} bs={bs} TC={tc}->{tco} {dt} on {res['device']} (kernel route "

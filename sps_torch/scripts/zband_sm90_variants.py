@@ -2,6 +2,7 @@
 
     python3 -m sps_torch.scripts.zband_sm90_variants [VARIANT.cu ...] [--sweep]
     python3 -m sps_torch.scripts.zband_sm90_variants --k5 [VARIANT.cu ...]
+    python3 -m sps_torch.scripts.zband_sm90_variants --f32 [VARIANT.cu ...]
 
 Each VARIANT.cu is a version of sps_torch/csrc/zband_conv_sm90.cu (an
 earlier revision, or a trial copy) with the same plain C entry point
@@ -23,7 +24,13 @@ unfused over C = 32, 64, 160, 320, which splits its time into a fixed
 part and a part per 16-channel chunk. With --k5 the shapes are the
 stem's (k = 5, h = 12): checks at ragged B, C 8/16/24 and N 128/256 with
 random weights, then the stem (B = 11264, C = 24, N = 128) and its
-N = 256 form timed. Prints one line per shape and a JSON line of all
+N = 256 form timed. With --f32 the copies are of zband_conv_tf32x3_sm90.cu
+(entry point sps_zband_conv_tf32x3_sm90, the wgmma_f32 route), the
+operands f32, the bar rtol / atol 1e-4 against the plain version, and the
+shapes the route takes: checks at ragged B for k = 3 (fused and not) and
+the k = 5 stem, then the stem, K3 (C = 160), block8_0.conv1 and
+block8_0.conv2 timed with band-packed weights (the kernel skips their
+all-zero 8 x 8 blocks). Prints one line per shape and a JSON line of all
 times.
 """
 
@@ -38,6 +45,7 @@ from pathlib import Path
 
 import torch
 
+from sps_torch.ops import brick as bk
 from sps_torch.ops import zband_conv as zc
 
 VARIANT_DIR = zc.BUILD_DIR / "variants"
@@ -54,9 +62,16 @@ TIMED = {  # name: (C, N, fused, res) at B = 11264
 CHECKS_K5 = [(1, 24, 128, False, False), (3, 16, 256, False, False), (5, 8, 128, False, False),
              (535, 24, 256, False, False), (11264, 24, 128, False, False)]
 TIMED_K5 = {"stem": (24, 128, False, False), "stem N=256": (24, 256, False, False)}
+# --f32: (B, C, N, fused, res, k) checks and (C, N, fused, res, k) timed shapes.
+CHECKS_F32 = [(1, 32, 128, True, True, 3), (3, 64, 256, False, False, 3),
+              (5, 160, 128, True, False, 3), (5, 24, 128, False, False, 5),
+              (535, 32, 256, True, True, 3), (11264, 320, 128, True, False, 3)]
+TIMED_F32 = {"stem": (24, 128, False, False, 5), "K3 TC16": (160, 128, False, False, 3),
+             "block8_0.conv1": (320, 128, True, False, 3),
+             "block8_0.conv2": (160, 128, True, True, 3)}
 
 
-def load_variant(src: Path, k: int = 3):
+def load_variant(src: Path, k: int = 3, f32: bool = False):
     """Compile one variant and return its C entry point."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     so = VARIANT_DIR / f"{src.stem}.so"
@@ -64,7 +79,11 @@ def load_variant(src: Path, k: int = 3):
                     "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-I{zc.CSRC}", "-shared", str(src),
                     "-o", str(so)], check=True)
     lib = ctypes.CDLL(str(so))
-    if k == 5:
+    if f32:
+        fn = lib.sps_zband_conv_tf32x3_sm90
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    elif k == 5:
         fn = lib.sps_zband_conv_k5_sm90
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
@@ -80,7 +99,13 @@ def call_variant(fn, hz, wz, ep):
     b, k, c, n = hz.shape[0], wz.shape[0], hz.shape[-1], wz.shape[-1]
     out = torch.empty((b, 8, 8, n), dtype=hz.dtype, device=hz.device)
     stream = torch.cuda.current_stream().cuda_stream
-    if k == 5:
+    if hz.dtype == torch.float32:
+        ptrs = [None if t is None else t.data_ptr() for t in (ep or (None,) * 4)]
+        wsplit = torch.empty(2 * wz.numel() + wz.numel() // 64, dtype=torch.float32,
+                             device=hz.device)
+        err = fn(int(ep is not None), hz.data_ptr(), wz.data_ptr(), *ptrs, out.data_ptr(),
+                 wsplit.data_ptr(), b, k, 8, c, n, 1, stream)
+    elif k == 5:
         err = fn(hz.data_ptr(), wz.data_ptr(), out.data_ptr(), b, 5, 8, c, n, stream)
     else:
         ptrs = [None if t is None else t.data_ptr() for t in (ep or (None,) * 4)]
@@ -98,17 +123,23 @@ def call_built(hz, wz, ep):
     return zc.zband_conv_fused(hz, wz, *ep, k=k, bs=8)
 
 
-def make(g, b, c, n, fused, res, k=3):
-    """Seeded bf16 operands, as chip_smoke.py's make_case draws them (at
-    k = 5 with a random weight that is not band-packed)."""
+def make(g, b, c, n, fused, res, k=3, dtype=torch.bfloat16, band=False):
+    """Seeded operands in `dtype` (scale and bias f32), as chip_smoke.py's
+    make_case draws them (at k = 5 with a random weight that is not
+    band-packed); with `band`, a band-packed weight (brick.pack_zband_kernel
+    of a random 3-D kernel with C / h input and N / 8 output channels)."""
     h = 8 + k - 1
-    hz = torch.rand((b, h, h, c), generator=g, device="cuda").bfloat16()
-    wz = (torch.randn((k, k, c, n), generator=g, device="cuda")
-          * (2.0 / (k * k * c * k / h)) ** 0.5).bfloat16()
+    hz = torch.rand((b, h, h, c), generator=g, device="cuda").to(dtype)
+    if band:
+        w = torch.randn((k, k, k, c // h, n // 8), generator=g, device="cuda")
+        wz = bk.pack_zband_kernel(w * (2.0 / (k**3 * c // h)) ** 0.5, 8, k // 2).to(dtype)
+    else:
+        wz = (torch.randn((k, k, c, n), generator=g, device="cuda")
+              * (2.0 / (k * k * c * k / h)) ** 0.5).to(dtype)
     if not fused:
         return hz, wz, None
-    occ = (torch.rand((b, 8, 8, n), generator=g, device="cuda") < 0.5).bfloat16()
-    r = (torch.randn((b, 8, 8, n), generator=g, device="cuda") * occ).bfloat16() if res else None
+    occ = (torch.rand((b, 8, 8, n), generator=g, device="cuda") < 0.5).to(dtype)
+    r = (torch.randn((b, 8, 8, n), generator=g, device="cuda") * occ).to(dtype) if res else None
     return hz, wz, (0.5 + torch.rand(n, generator=g, device="cuda"),
                     0.1 * torch.randn(n, generator=g, device="cuda"), occ, r)
 
@@ -134,19 +165,25 @@ def main(argv=None) -> dict:
                     help="copies of zband_conv_sm90.cu (zband_conv_k5_sm90.cu with --k5)")
     ap.add_argument("--sweep", action="store_true", help="time the built kernel over C")
     ap.add_argument("--k5", action="store_true", help="the k = 5 stem kernel's variants")
+    ap.add_argument("--f32", action="store_true", help="the wgmma_f32 kernel's variants")
     args = ap.parse_args(argv)
     k = 5 if args.k5 else 3
-    checks, timed = (CHECKS_K5, TIMED_K5) if args.k5 else (CHECKS, TIMED)
+    dtype = torch.float32 if args.f32 else torch.bfloat16
+    if args.f32:
+        checks, timed = CHECKS_F32, TIMED_F32
+    else:
+        checks = [(*c, k) for c in (CHECKS_K5 if args.k5 else CHECKS)]
+        timed = {name: (*v, k) for name, v in (TIMED_K5 if args.k5 else TIMED).items()}
     if not torch.cuda.is_available():
         raise SystemExit("zband_sm90_variants: no CUDA device")
     zc.build()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    fns = {src.stem: load_variant(src, k) for src in args.variants}
+    fns = {src.stem: load_variant(src, k, args.f32) for src in args.variants}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for b, c, n, fused, res in checks:
-        hz, wz, ep = make(g, b, c, n, fused, res, k)
+    for b, c, n, fused, res, k in checks:
+        hz, wz, ep = make(g, b, c, n, fused, res, k, dtype)
         got = call_built(hz, wz, ep)
         f32 = [None if t is None else t.float() for t in (ep or ())]
         want = (zc.zband_conv_fused_ref(hz.float(), wz.float(), *f32, k=k, bs=8) if ep
@@ -154,13 +191,22 @@ def main(argv=None) -> dict:
         err, top = float((got.float() - want).abs().max()), float(want.abs().max())
         same = {name: bool(torch.equal(call_variant(fn, hz, wz, ep), got))
                 for name, fn in fns.items()}
-        print(f"check B={b} C={c} N={n} fused={fused} res={res}: max-abs error {err:.3e} "
-              f"(out max-abs {top:.3e}); bit-equal to the built kernel: {same}", flush=True)
-        if err > 2e-2 * top:
+        print(f"check k={k} B={b} C={c} N={n} fused={fused} res={res}: max-abs error "
+              f"{err:.3e} (out max-abs {top:.3e}); bit-equal to the built kernel: {same}",
+              flush=True)
+        if args.f32:
+            for name, fn in fns.items():
+                e = (call_variant(fn, hz, wz, ep) - want).abs()
+                if not bool((e <= 1e-4 + 1e-4 * want.abs()).all()):
+                    raise AssertionError(f"{name} disagrees with the plain version")
+            ok = bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+        else:
+            ok = err <= 2e-2 * top
+        if not ok:
             raise AssertionError("the built kernel disagrees with the plain version")
     times = {}
-    for shape, (c, n, fused, res) in timed.items():
-        hz, wz, ep = make(g, 11264, c, n, fused, res, k)
+    for shape, (c, n, fused, res, k) in timed.items():
+        hz, wz, ep = make(g, 11264, c, n, fused, res, k, dtype, band=args.f32)
         t = {name: [time_ms(lambda: call_variant(fn, hz, wz, ep))] for name, fn in fns.items()}
         t["built"] = [time_ms(lambda: call_built(hz, wz, ep)) for _ in range(2)]
         for name, fn in fns.items():
@@ -172,7 +218,7 @@ def main(argv=None) -> dict:
     if args.sweep:
         times["sweep"] = {}
         for c in (32, 64, 160, 320):
-            hz, wz, _ = make(g, 11264, c, 128, False, False)
+            hz, wz, _ = make(g, 11264, c, 128, False, False, 3, dtype)
             times["sweep"][c] = time_ms(lambda: call_built(hz, wz, None))
             print(f"sweep C={c:3d} ({c // zc.SM90_CK} chunks): built {times['sweep'][c]:.3f} ms",
                   flush=True)

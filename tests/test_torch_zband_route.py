@@ -4,8 +4,9 @@ the CPU.
 `zband_conv.route` picks, from a call's shape alone, the kernel a CUDA
 tensor runs: the wgmma kernel (sps_torch/csrc/zband_conv_sm90.cu) for the
 L0 block8 convs and the k = 3 microbenchmark, the k = 5 wgmma kernel
-(zband_conv_k5_sm90.cu) for the stem, the WMMA kernel (zband_conv.cu) for
-everything else. The wgmma kernels read their operands out of shared
+(zband_conv_k5_sm90.cu) for the stem, in f32 at those shapes the 3xTF32
+wgmma kernel (zband_conv_tf32x3_sm90.cu, tests/test_torch_zband_f32_route.py),
+the WMMA kernel (zband_conv.cu) for everything else. The wgmma kernels read their operands out of shared
 memory through descriptors; the `sm90_*` and `k5_*` helpers carry the
 same formulas as the .cu files, and the tests replay the copies and
 descriptors on seeded numpy buffers: every A and B tile must come out as
@@ -67,9 +68,9 @@ def test_route_takes_wgmma(call):
     b, k, bs, c, n, fused, res = WGMMA_CALLS[call]
     hz, wz, rest = _operands(b, k, bs, c, n, fused=fused, res=res)
     assert zc.route(hz, wz, k, bs, *rest) == "wgmma"
-    # f32 operands of the same shape stay on the WMMA kernel.
+    # f32 operands of the same shape take the 3xTF32 wgmma kernel.
     hz32, wz32, rest32 = _operands(b, k, bs, c, n, torch.float32, fused, res)
-    assert zc.route(hz32, wz32, k, bs, *rest32) == "wmma"
+    assert zc.route(hz32, wz32, k, bs, *rest32) == "wgmma_f32"
 
 
 @pytest.mark.parametrize("call", sorted(K5_CALLS))
@@ -77,9 +78,9 @@ def test_route_takes_wgmma_k5(call):
     b, k, bs, c, n, fused, res = K5_CALLS[call]
     hz, wz, rest = _operands(b, k, bs, c, n, fused=fused, res=res)
     assert zc.route(hz, wz, k, bs, *rest) == "wgmma_k5"
-    # f32 operands of the same shape stay on the WMMA kernel.
+    # f32 operands of the same shape take the 3xTF32 wgmma kernel.
     hz32, wz32, rest32 = _operands(b, k, bs, c, n, torch.float32, fused, res)
-    assert zc.route(hz32, wz32, k, bs, *rest32) == "wmma"
+    assert zc.route(hz32, wz32, k, bs, *rest32) == "wgmma_f32"
 
 
 @pytest.mark.parametrize("call", sorted(WMMA_CALLS))
@@ -119,7 +120,7 @@ def test_reset_launches():
     zc.ROUTE_LAUNCHES["zband_conv_fused"]["wgmma"] = 2
     zc.reset_launches()
     assert zc.LAUNCHES == {"zband_conv": 0, "zband_conv_fused": 0}
-    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0, "wgmma_k5": 0}
+    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0, "wgmma_k5": 0, "wgmma_f32": 0}
                                  for name in zc.LAUNCHES}
 
 
