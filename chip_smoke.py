@@ -25,9 +25,14 @@ Phases, each of which raises (and exits non-zero) on failure:
               plain version and F.conv2d (CUDA events, median of 20), in
               bf16 and, on the wgmma_f32 route, in f32 at the stem, both
               block8 convs and K3 beside both f32 bounds (3xTF32 on the
-              tensor cores; an FMA loop at the f32 peak); and the bf16
-              C = 48 stem of DIST_FEATURE (WMMA route) beside its bound and
-              F.conv2d;
+              tensor cores; an FMA loop at the f32 peak); and the C = 48
+              stem of DIST_FEATURE on the wgmma_k5_wide route
+              (zband_conv_k5_wide_sm90.cu, bf16: B 1, 7, 11263, 3, 5; N 128,
+              256; band-packed and random weights; then full
+              width timed beside the WMMA kernel on the same operands, its
+              bound, the floor of the work it executes, the plain version
+              and F.conv2d) and in f32 on wgmma_f32 (ragged B 7, 1 and full
+              width, timed as the other f32 calls);
               Then the int8 brick conv (brick_conv_int8.cu) against its
               plain version bit for bit, bf16 and f32 outputs, at the nine
               shapes of the shipping path's ten int8 convs (full B), at
@@ -254,6 +259,14 @@ Phases, each of which raises (and exits non-zero) on failure:
               (ghost_frac 0.5): collectives and bytes a scan, no ghost
               overflow, the ranks' scores equal, sps_tpu's HLO counts
               beside, and the analytic NCLT table.
+  17. DIST_FEATURE + STEM_ZBAND - config.yaml as shipped with the
+              distance feature (two input channels, DIST_CAP 1.0 as
+              config_loc_movers_v2.yaml) and STEM_ZBAND, seeded full-width
+              weights, phase 6's ten scans: one wgmma_k5_wide launch a scan
+              at hz (11264, 12, 12, 48), 10 int8 gather launches a scan,
+              no overflow, scores finite in (0, 1] and within 0.05 of the
+              same filter with the halo stem; both filters' p50 and kernel
+              ms a scan (profiler, 8 scans).
 It then prints the card, one JSON line of per-kernel results and, last,
 {"ok": true, "device": {...}}. With --profile it also traces 8 scans of
 the zband path, 8 of the shipping path and 8 offline predict steps (9c)
@@ -524,10 +537,12 @@ def phase_kernels(card):
 
     # The wgmma_f32 route at ragged B (not a multiple of its 4 bricks per
     # block): k = 3 at both channel widths of L0, fused and not, one and two
-    # 128-column tiles, and the k = 5 stem (band-packed and random weights).
+    # 128-column tiles, and the k = 5 stem at C = 24 and the DIST_FEATURE
+    # stem's C = 48 (band-packed and random weights).
     f32_ragged = [  # (k, tcin, tcout, B, fused, with_res)
         (3, 16, 16, 1, False, False), (3, 32, 16, 3, True, False), (3, 16, 32, 5, True, True),
         (3, 32, 32, 3, False, False), (5, 2, 16, 5, False, False), (5, 2, 32, 3, False, False),
+        (5, 4, 16, 7, False, False), (5, 4, 32, 1, False, False),
     ]
     errs["zband_conv_f32"] = 0.0
     for i, (k, tcin, tcout, b, fused, wres) in enumerate(f32_ragged):
@@ -536,7 +551,7 @@ def phase_kernels(card):
         tag = f"ragged k={k} tcin={tcin} tcout={tcout} B={b} float32"
         errs["zband_conv_f32"] = max(errs["zband_conv_f32"], check(
             name, c, True, tag + (f" res={wres}" if fused else ""), "wgmma_f32"))
-    for i, (b, cin, n) in enumerate([(5, 24, 128), (3, 16, 256)]):
+    for i, (b, cin, n) in enumerate([(5, 24, 128), (3, 16, 256), (7, 48, 128)]):
         g = make_general(b, cin, n, seed=80 + i)
         c = dict(g, hz=g["hz"].float(), wz=g["wz"].float())
         errs["zband_conv_f32"] = max(errs["zband_conv_f32"], check(
@@ -591,7 +606,7 @@ def phase_kernels(card):
                         ("zband_conv_fused", "block8_0.conv1", 3, 32, False, 101),
                         ("zband_conv_fused", "block8_0.conv2", 3, 16, True, 102),
                         ("zband_conv", "K3", 3, 16, False, 110))]
-    return errs, per_call, k3, per_call_f32, phase_dist_stem(card)
+    return errs, per_call, k3, per_call_f32, phase_dist_stem(card, errs)
 
 
 def phase_f32_call(card, errs, name, where, k, tcin, wres, seed):
@@ -631,31 +646,59 @@ def phase_f32_call(card, errs, name, where, k, tcin, wres, seed):
                 max_abs_err=e)
 
 
-def phase_dist_stem(card):
-    """The C = 48 stem of DIST_FEATURE (k = 5, TCin 4, bf16) on the WMMA
-    route, which no wgmma kernel takes yet: held against its plain version
-    and timed beside its bound and F.conv2d."""
+def phase_dist_stem(card, errs):
+    """The C = 48 stem of DIST_FEATURE (k = 5, TCin 4) on its wgmma route
+    ("wgmma_k5_wide"): held against its plain version at ragged B (band-packed
+    and random weights, one and two column tiles) and at full
+    shape, timed beside the WMMA kernel on the same operands, its bound, the
+    floor of the work it executes (the k-steps of wz that are not all zero),
+    the plain version and F.conv2d; then the same call in f32 on
+    the wgmma_f32 route (phase_f32_call)."""
     import torch
     import torch.nn.functional as F
 
+    wide = [  # (B, C, N, band-packed)
+        (1, 48, 128, True), (7, 48, 128, False), (11263, 48, 128, True), (3, 48, 256, False),
+        (5, 48, 128, True), (1, 48, 256, True),
+    ]
+    err = 0.0
+    for i, (b, cin, n, band) in enumerate(wide):
+        c = (make_case(5, 8, cin // 12, n // 8, b, torch.bfloat16, seed=130 + i) if band
+             else make_general(b, cin, n, seed=130 + i))
+        tag = f"DIST stem ragged B={b} C={cin} N={n} {'band' if band else 'random'} wz bfloat16"
+        err = max(err, check("zband_conv", c, True, tag, "wgmma_k5_wide"))
+        del c
     c = make_case(5, 8, 4, 16, 11264, torch.bfloat16, seed=120, with_res=False)
-    e = check("zband_conv", c, True, f"full DIST_FEATURE stem hz{tuple(c['hz'].shape)} bfloat16",
-              "wmma")
+    err = max(err, check("zband_conv", c, True,
+                         f"full DIST_FEATURE stem hz{tuple(c['hz'].shape)} bfloat16",
+                         "wgmma_k5_wide"))
     x_nchw, w_oihw = c["hz"].permute(0, 3, 1, 2), c["wz"].permute(3, 2, 0, 1)
     ms = time_ms(lambda: run_kernel("zband_conv", c))
+    wmma_ms = time_ms(lambda: run_wmma("zband_conv", c))
     plain_ms = time_ms(lambda: run_plain("zband_conv", c))
     library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw))
     flops, nbytes = work(c, False)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     bound_ms, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  time zband_conv       DIST stem C=48  bf16 [{card}]: kernel (wmma) {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB)")
+    # The kernel multiplies the k-steps of each 64-column tile whose weight
+    # holds a value other than 0 at some tap: their FLOPs at the bf16 peak.
+    wzb = c["wz"].reshape(25, 3, 16, -1, 64)
+    done = float(wzb.ne(0).any(dim=4).any(dim=2).any(dim=0).float().mean())
+    floor_ms = done * t_ops * 1e3
+    log(f"  time zband_conv       DIST stem C=48  bf16 [{card}]: kernel (wgmma_k5_wide) "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s of band), wmma kernel {wmma_ms:.3f} ms "
+        f"({wmma_ms / ms:.2f}x), plain {plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms "
+        f"({library_ms / ms:.2f}x), bound {bound_ms:.3f} ms ({bound_by}; {flops / 1e9:.1f} "
+        f"GFLOP, {nbytes / 1e9:.3f} GB), executed-work floor {floor_ms:.3f} ms "
+        f"({100 * done:.1f}% of the k-steps)")
     del c, x_nchw, w_oihw
     torch.cuda.empty_cache()
-    return dict(call="DIST_FEATURE stem", route="wmma", source=route_source("wmma"), ms=ms,
+    f32 = phase_f32_call(card, errs, "zband_conv", "DIST stem C=48", 5, 4, False, 121)
+    return dict(call="DIST_FEATURE stem", route="wgmma_k5_wide",
+                source=route_source("wgmma_k5_wide"), ms=ms, wmma_ms=wmma_ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                gflop=flops / 1e9, gbytes=nbytes / 1e9, max_abs_err=e)
+                executed_floor_ms=floor_ms, executed_share=done, gflop=flops / 1e9,
+                gbytes=nbytes / 1e9, max_abs_err=err, f32=f32)
 
 
 def int8_case(b, c, n, seed, kind="rand"):
@@ -4111,6 +4154,60 @@ def phase_sp_traffic(card, shipped, sd):
     return rows
 
 
+# Phase 17: the distance feature under STEM_ZBAND. Its weights' seed (two
+# input channels: phase 6's state dict has a one-channel stem).
+DIST_SEED = 17
+
+
+def phase_dist_stem_zband(card, shipped, stable, data):
+    """17: DIST_FEATURE + STEM_ZBAND. config.yaml as shipped with the distance
+    feature (dist_cap 1.0, as config_loc_movers_v2.yaml) and STEM_ZBAND on
+    phase 6's scans: one wgmma_k5_wide launch a scan at the L0 capacity's
+    C = 48 stem shape, 10 int8 gather launches a scan, no overflow, scores
+    finite in (0, 1] and within 0.05 of the same filter and weights with the
+    halo stem; both filters' p50 and kernel ms a scan."""
+    import torch
+
+    from sps_torch.models import spsnet
+
+    log("phase 17: DIST_FEATURE + STEM_ZBAND (config.yaml, two input channels)")
+    dist = dataclasses.replace(shipped, dist_feature=True, dist_cap=1.0)
+    scfg = dist.sps_config(1)
+    if scfg.unet.in_channels != 2 or not scfg.dist_feature:
+        raise AssertionError("17: the distance feature does not give two input channels")
+    sd = spsnet.init_state_dict(scfg, seed=DIST_SEED)
+    n_scans, b0 = len(data[0]), scfg.caps.bricks[0]
+    out = {}
+    for label, cfg in (("STEM_ZBAND", twin(dist, stem_zband=True)), ("halo stem", dist)):
+        filt, run = drive(cfg, sd, stable, data)
+        run["p50"] = check_run(run, data[1], cfg.tpu.topo_every, card,
+                               f"DIST_FEATURE {label} filter")
+        zband = n_scans if cfg.tpu.stem_zband else 0
+        check_launches(run, {"zband_conv": routes(wgmma_k5_wide=zband),
+                             "zband_conv_fused": routes(),
+                             "brick_conv_int8": 0, "brick_conv_int8_gather": 10 * n_scans},
+                       f"DIST_FEATURE {label} filter")
+        want = {("zband_conv", "wgmma_k5_wide", (b0, 12, 12, 48), (5, 5, 48, 128)): zband}
+        if run["shape_launches"] != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"17 {label}: launches by shape {run['shape_launches']}")
+        run["profile"] = filter_kernel_ms(filt, data, card, f"DIST_FEATURE {label}")
+        out[label] = run
+        del filt
+        torch.cuda.empty_cache()
+    vs = compare_runs(out["STEM_ZBAND"], out["halo stem"], data[1], dist.threshold, 0.05,
+                      "DIST_FEATURE STEM_ZBAND filter vs the halo stem")
+    log(f"  17: p50 {out['STEM_ZBAND']['p50']:.2f} ms (STEM_ZBAND) / "
+        f"{out['halo stem']['p50']:.2f} ms (halo stem); kernels a scan "
+        f"{out['STEM_ZBAND']['profile']['kernel_ms']:.2f} / "
+        f"{out['halo stem']['profile']['kernel_ms']:.2f} ms [{card}]")
+    return dict(vs_halo_stem=vs, **{label: dict(
+        p50=r["p50"], peak=r["peak"], launches=r["launches"],
+        shape_launches={"/".join(map(str, k)): v for k, v in r["shape_launches"].items()},
+        kernel_ms_a_scan=r["profile"]["kernel_ms"], launches_a_scan=r["profile"]["launches"],
+        zband_kernel_ms_a_scan=r["profile"]["zband_kernel_ms"])
+        for label, r in out.items()})
+
+
 def main() -> int:
     import torch
 
@@ -4200,6 +4297,7 @@ def main() -> int:
     topo_reuse = phase_topo_reuse(card, shipped, sd)
     stages = phase_stage_profile(card, shipped, sd)
     sp_traffic = phase_sp_traffic(card, shipped, sd)
+    dist17 = phase_dist_stem_zband(card, shipped, stable, data)
 
     kernels = []
     for name in ("zband_conv", "zband_conv_fused"):
@@ -4256,7 +4354,20 @@ def main() -> int:
                                      "bound_fma_ms", "bound_bytes_ms", "gflop", "gbytes",
                                      "max_abs_err")}
                   for c in f32_calls],
-        "dist_feature_stem_bf16": dist_stem,
+    })
+    # The C = 48 stem of DIST_FEATURE (phase 2's full-width call), launched
+    # on phase 17's path; its f32 call (wgmma_f32) beside it.
+    kernels.append({
+        "name": "zband_conv_dist_stem", "route": "cuda", "source": dist_stem["source"],
+        "replaces": REPLACES["zband_conv"],
+        "launches": dist17["STEM_ZBAND"]["launches"]["zband_conv"]["wgmma_k5_wide"],
+        **{key: dist_stem[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "wmma_ms",
+                                           "executed_floor_ms", "gflop", "gbytes")},
+        "f32": {k: dist_stem["f32"][k] for k in ("route", "source", "ms", "wmma_ms", "plain_ms",
+                                                 "library_ms", "bound_ms", "bound_by",
+                                                 "bound_fma_ms", "max_abs_err")},
+        "phase_17": dist17,
     })
     kc = k3["variants"]["kernel-conv"]
     times = {"ms": kc["ms"], "plain_ms": k3["plain_ms"],
@@ -4371,7 +4482,12 @@ def main() -> int:
             f"{label} " + " / ".join(f"{v:.2f}" for v in r["kernel_ms"].values())
             for label, r in stages.items())
         + " (vox / topo / unet); 16d sp=2 MB a scan " + ", ".join(
-            f"{r['mode']} {r['total_bytes'] / 1e6:.1f}" for r in sp_traffic))
+            f"{r['mode']} {r['total_bytes'] / 1e6:.1f}" for r in sp_traffic)
+        + f"; 17 DIST_FEATURE p50 {dist17['STEM_ZBAND']['p50']:.2f} (STEM_ZBAND) / "
+        f"{dist17['halo stem']['p50']:.2f} ms (halo stem), kernels a scan "
+        f"{dist17['STEM_ZBAND']['kernel_ms_a_scan']:.2f} / "
+        f"{dist17['halo stem']['kernel_ms_a_scan']:.2f} ms, max |dscore| "
+        f"{dist17['vs_halo_stem']['max_dscore']:.2e}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 // Device helpers shared by the z-band wgmma kernels (sm_90a):
-// zband_conv_sm90.cu (k = 3), zband_conv_k5_sm90.cu (the k = 5 stem) and
+// zband_conv_sm90.cu (k = 3), zband_conv_k5_sm90.cu (the k = 5 stem),
+// zband_conv_k5_wide_sm90.cu (the k = 5 stem at C = 48) and
 // zband_conv_tf32x3_sm90.cu (f32). 16-byte cp.async copies, the no-swizzle
-// shared-memory matrix descriptor, wgmma.m64n128k16 (bf16 in, f32
-// accumulators, B MN-major) and wgmma.m64n128k8 (TF32 in, f32 accumulators,
-// both operands K-major).
+// shared-memory matrix descriptor, wgmma.m64n128k16 and wgmma.m64n64k16
+// (bf16 in, f32 accumulators, B MN-major) and wgmma.m64n128k8 (TF32 in, f32
+// accumulators, both operands K-major).
 
 #pragma once
 
@@ -56,6 +57,25 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d += A (64 x 16, K-major) * B (16 x 64, MN-major: transpose-B set).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d += A (64 x 8, K-major) * B (8 x 128, K-major), TF32 operands (f32 values
 // whose low 13 mantissa bits are zero). TF32 takes no transpose bits.
 __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da, uint64_t db) {
@@ -85,9 +105,10 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t da
 }
 
 // Keep the compiler from moving accumulator accesses across wgmma's async window.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 inline bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }

@@ -32,8 +32,9 @@
 // Which calls it serves: those that sps_torch/ops/zband_conv.route sends to
 // none of the wgmma kernels (zband_conv_sm90.cu: bf16 at k = 3, bs = 8,
 // C % 32 == 0, N % 128 == 0; zband_conv_k5_sm90.cu: the unfused bf16 stem,
-// k = 5, bs = 8, C % 8 == 0 with C <= 24; zband_conv_tf32x3_sm90.cu: f32 at
-// either of those shapes): the bf16 C = 48 stem of DIST_FEATURE, the f32
+// k = 5, bs = 8, C % 8 == 0 with C <= 24; zband_conv_k5_wide_sm90.cu: the same
+// at C = 48, the stem of DIST_FEATURE; zband_conv_tf32x3_sm90.cu: f32
+// at k = 3 as the first and at the unfused k = 5 stem with C <= 48): the f32
 // stem at narrow widths (N < 128, as in the training pin), and every small
 // or ragged shape (bs = 4, C or N off the wgmma kernels' multiples,
 // misaligned operands) in f32 and bf16. Its f32 FMA loop is the yardstick

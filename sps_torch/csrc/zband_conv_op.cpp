@@ -1,8 +1,9 @@
 // PyTorch binding of the port's CUDA kernels: the z-band kernels in
 // zband_conv.cu (route 0, WMMA), zband_conv_sm90.cu (route 1, wgmma at
 // k = 3), zband_conv_k5_sm90.cu (route 2, wgmma at the k = 5 stem,
-// unfused only) and zband_conv_tf32x3_sm90.cu (route 3, f32 on 3xTF32
-// wgmma at both), and the int8 brick conv in brick_conv_int8.cu (its gather
+// unfused only), zband_conv_tf32x3_sm90.cu (route 3, f32 on 3xTF32 wgmma
+// at both) and zband_conv_k5_wide_sm90.cu (route 4, wgmma at the k = 5 stem
+// at C = 48, unfused only), and the int8 brick conv in brick_conv_int8.cu (its gather
 // and halo forms): registers torch.ops.sps_torch.zband_conv,
 // zband_conv_fused, brick_conv_int8_gather and brick_conv_int8 for CUDA
 // tensors. The kernel files
@@ -29,6 +30,9 @@ extern "C" int sps_zband_conv_sm90(int fused, const void* hz, const void* wz, co
                                    void* stream);
 extern "C" int sps_zband_conv_k5_sm90(const void* hz, const void* wz, void* out, long long batch,
                                       int k, int bs, int C, int N, void* stream);
+extern "C" int sps_zband_conv_k5_wide_sm90(const void* hz, const void* wz, void* out,
+                                           long long batch, int k, int bs, int C, int N,
+                                           void* stream);
 extern "C" int sps_zband_conv_tf32x3_sm90(int fused, const float* hz, const float* wz,
                                           const float* scale, const float* bias, const float* occ,
                                           const float* res, float* out, float* wsplit,
@@ -50,8 +54,9 @@ void check_operand(const at::Tensor& t, const at::Tensor& hz, const char* name) 
 at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* scale,
                   const at::Tensor* bias, const at::Tensor* occ, const at::Tensor* res,
                   int64_t k, int64_t bs, bool relu, int64_t route, int64_t stream) {
-  TORCH_CHECK(route >= 0 && route <= 3,
-              "route must be 0 (wmma), 1 (wgmma), 2 (wgmma_k5) or 3 (wgmma_f32)");
+  TORCH_CHECK(route >= 0 && route <= 4,
+              "route must be 0 (wmma), 1 (wgmma), 2 (wgmma_k5), 3 (wgmma_f32) or 4 "
+              "(wgmma_k5_wide)");
   TORCH_CHECK(hz.is_cuda(), "zband kernels take CUDA tensors");
   const bool bf16 = hz.scalar_type() == at::kBFloat16;
   TORCH_CHECK(bf16 || hz.scalar_type() == at::kFloat, "hz must be float32 or bfloat16");
@@ -117,7 +122,16 @@ at::Tensor launch(const at::Tensor& hz, const at::Tensor& wz, const at::Tensor* 
         static_cast<int>(c), static_cast<int>(n), relu ? 1 : 0, reinterpret_cast<void*>(stream));
     TORCH_CHECK(err != -1, "route wgmma_f32 does not take this call: it needs bs = 8, ",
                 "N % 128 == 0, 16-byte aligned operands and k = 3 with C % 32 == 0, or the ",
-                "unfused call at k = 5 with C % 8 == 0 and C <= 24");
+                "unfused call at k = 5 with C % 8 == 0 and C <= 48");
+  } else if (route == 4) {
+    TORCH_CHECK(bf16, "route wgmma_k5_wide takes bfloat16 only");
+    TORCH_CHECK(!fused, "route wgmma_k5_wide takes the unfused conv only");
+    err = sps_zband_conv_k5_wide_sm90(hz.data_ptr(), wz.data_ptr(), out.data_ptr(), b,
+                                      static_cast<int>(k), static_cast<int>(bs),
+                                      static_cast<int>(c), static_cast<int>(n),
+                                      reinterpret_cast<void*>(stream));
+    TORCH_CHECK(err != -1, "route wgmma_k5_wide does not take this call: it needs k = 5, ",
+                "bs = 8, C = 48, N % 128 == 0 and 16-byte aligned operands");
   } else {
     err = sps_zband_conv(bf16 ? 1 : 0, fused ? 1 : 0, hz.data_ptr(), wz.data_ptr(), sc, bi, oc,
                          rs, out.data_ptr(), b, static_cast<int>(k), static_cast<int>(bs),

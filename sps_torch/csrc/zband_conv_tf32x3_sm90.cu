@@ -3,9 +3,10 @@
 // Plain C entry point sps_zband_conv_tf32x3_sm90 (below); zband_conv_op.cpp
 // binds it to PyTorch as route 3 ("wgmma_f32") and
 // sps_torch/ops/zband_conv.py routes an f32 call here when its shape
-// qualifies (zband_conv.route): the shapes that the bf16 routes take,
-// k = 3 (zband_conv_sm90.cu's rule) and the unfused k = 5 stem
-// (zband_conv_k5_sm90.cu's rule). Device helpers in sm90_wgmma.cuh.
+// qualifies (zband_conv.route): k = 3 at zband_conv_sm90.cu's shapes, and the
+// unfused k = 5 stem at C % 8 == 0 with C <= 48 (zband_conv_k5_sm90.cu's
+// C <= 24 and the C = 48 stem of DIST_FEATURE). Device helpers in
+// sm90_wgmma.cuh.
 //
 // Replaces, in f32 and at the shapes it takes, the Pallas TPU kernels of
 // sps_tpu/ops/pallas_conv.py (the BF16: false configurations):
@@ -63,14 +64,15 @@
 //     group][8][4] (SBO 128 bytes: next 8 columns;
 //     LBO 2048 bytes: next 4 channels). The pieces of an all-zero block are
 //     zero-filled without a read: the band's zeros, 70% of K2's weight and a
-//     third of the stem's. Each thread loads its column group's flags for a
+//     third of the C = 24 stem's, half of the C = 48 one's. Each thread loads its column group's flags for a
 //     step's taps together, before its copies. The weight's copies cost more
 //     than its tensor-core work at first: at K3's shape on an H100 a version
 //     that read every block took 4.99 ms, one that checked a flag before
 //     each copy 3.77, this one 2.80 (sps_torch/scripts/zband_sm90_variants.py
 //     --f32, band-packed weights).
 //   * A step is one 8-channel chunk q and a group of taps: all 9 at k = 3,
-//     one row of 5 at k = 5 (all 25 would not fit twice in shared memory).
+//     one row of 5 at k = 5 (all 25 would not fit twice in shared memory):
+//     C / 8 x 5 steps at k = 5, 30 at the C = 48 stem.
 //     Two halo buffers (chunk q % 2) and two weight buffers (step % 2), each
 //     hi and lo: k = 3 2 x 25,600 + 2 x 73,728 = 198,656 bytes, k = 5
 //     2 x 36,864 + 2 x 40,960 = 155,648. After step s's barrier the block
@@ -410,7 +412,7 @@ int launch(const Params& p, cudaStream_t stream) {
 // The shapes this kernel takes (the "wgmma_f32" route of
 // sps_torch/ops/zband_conv.py): f32 operands, bs = 8, N % 128 == 0, 16-byte
 // aligned, and k = 3 with C % 32 == 0, or the unfused call at k = 5 with
-// C % 8 == 0 and 0 < C <= 24. wsplit is the caller's scratch of
+// C % 8 == 0 and 0 < C <= 48. wsplit is the caller's scratch of
 // 2 k^2 C N floats and then k^2 (C / 8) (N / 8) ints (the block flags),
 // written by zband_tf32x3_split_kernel before the conv reads it (all on
 // `stream`). Returns -1 when the call does not qualify, else the
@@ -422,7 +424,7 @@ extern "C" int sps_zband_conv_tf32x3_sm90(int fused, const float* hz, const floa
                                           long long batch, int k, int bs, int C, int N, int relu,
                                           void* stream) {
   const bool k3 = k == 3 && C > 0 && C % 32 == 0;
-  const bool k5 = k == 5 && !fused && C > 0 && C % 8 == 0 && C <= 24;
+  const bool k5 = k == 5 && !fused && C > 0 && C % 8 == 0 && C <= 48;
   if (bs != BS || !(k3 || k5) || N <= 0 || N % BN != 0) return -1;
   if (!aligned16(hz) || !aligned16(wz) || !aligned16(out) || !aligned16(wsplit)) return -1;
   if (fused && (!aligned16(scale) || !aligned16(bias) || !aligned16(occ) ||

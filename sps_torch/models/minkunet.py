@@ -27,8 +27,8 @@ mode's dense brick conv ("region" or "halo"; "halo" under "zband"), row
 levels the row-gather conv. With int8 the 3^3 convs of unfolded brick
 levels run as int8 convs (the brick_conv_int8 kernel); with head_fold
 the 1x1 head runs on the z-folded layout. With stem_zband the k = 5 stem
-alone runs folded (in bf16 the zband_conv kernel's "wgmma_k5" route), then
-unfolds.
+alone runs folded (in bf16 the zband_conv kernel's "wgmma_k5" route, or
+"wgmma_k5_wide" at the C = 48 stem of dist_feature), then unfolds.
 
 With sp_axis set the UNet runs spatially sharded (parallel/spatial.py):
 levels come sliced to this rank's block of rows, every conv with a spatial

@@ -25,12 +25,14 @@ sps_torch/csrc/zband_conv_sm90.cu (bf16, k = 3, bs = 8, C % 32 == 0,
 N % 128 == 0, 16-byte aligned: both block8 convs of L0 and the k = 3
 microbenchmark), "wgmma_k5" runs sps_torch/csrc/zband_conv_k5_sm90.cu
 (the unfused conv in bf16 at k = 5, bs = 8, C % 8 == 0 with C <= 24,
-N % 128 == 0, 16-byte aligned: the stem), "wgmma_f32" runs
-sps_torch/csrc/zband_conv_tf32x3_sm90.cu (f32 at either of those two
-shapes, on 3xTF32 wgmma), "wmma" runs sps_torch/csrc/zband_conv.cu (every
-other shape: small and ragged shapes in f32 and bf16, the C = 48 stem of
-DIST_FEATURE). No flag picks a route, and a route that does not take a
-shape raises. The library is built at first
+N % 128 == 0, 16-byte aligned: the stem), "wgmma_k5_wide" runs
+sps_torch/csrc/zband_conv_k5_wide_sm90.cu (the same at C = 48: the stem
+of DIST_FEATURE), "wgmma_f32" runs
+sps_torch/csrc/zband_conv_tf32x3_sm90.cu (f32 at k = 3 as "wgmma" and at
+the unfused k = 5 stem with C % 8 == 0, C <= 48, on 3xTF32 wgmma), "wmma"
+runs sps_torch/csrc/zband_conv.cu (every other shape: small and ragged
+shapes in f32 and bf16). No flag picks a route, and a route that does not
+take a shape raises. The library is built at first
 use into build/torch_ext/ (one nvcc per CUDA source for sm_90a and the
 host compiler, all started together, then one link) and rebuilt when a
 source changes. A build or launch failure raises. On a CPU tensor they
@@ -51,18 +53,20 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 CUDA_SOURCES = (CSRC / "zband_conv.cu", CSRC / "zband_conv_sm90.cu",
                 CSRC / "zband_conv_k5_sm90.cu", CSRC / "zband_conv_tf32x3_sm90.cu",
-                CSRC / "brick_conv_int8.cu")
+                CSRC / "zband_conv_k5_wide_sm90.cu", CSRC / "brick_conv_int8.cu")
 OP_SOURCE = CSRC / "zband_conv_op.cpp"
 SOURCES = (*CUDA_SOURCES, OP_SOURCE)
-HEADERS = (CSRC / "sm90_wgmma.cuh",)  # included by the three wgmma sources
+HEADERS = (CSRC / "sm90_wgmma.cuh",)  # included by the four wgmma sources
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 
 # Route name -> the op's route argument: 0 runs zband_conv.cu (WMMA), 1
 # zband_conv_sm90.cu (wgmma, k = 3), 2 zband_conv_k5_sm90.cu (wgmma, the
-# k = 5 stem), 3 zband_conv_tf32x3_sm90.cu (f32 on 3xTF32 wgmma, both).
-ROUTES = {"wmma": 0, "wgmma": 1, "wgmma_k5": 2, "wgmma_f32": 3}
+# k = 5 stem), 3 zband_conv_tf32x3_sm90.cu (f32 on 3xTF32 wgmma, both), 4
+# zband_conv_k5_wide_sm90.cu (wgmma, the k = 5 stem at C = 48).
+ROUTES = {"wmma": 0, "wgmma": 1, "wgmma_k5": 2, "wgmma_f32": 3, "wgmma_k5_wide": 4}
 ROUTE_SOURCES = {"wmma": CUDA_SOURCES[0], "wgmma": CUDA_SOURCES[1],
-                 "wgmma_k5": CUDA_SOURCES[2], "wgmma_f32": CUDA_SOURCES[3]}
+                 "wgmma_k5": CUDA_SOURCES[2], "wgmma_f32": CUDA_SOURCES[3],
+                 "wgmma_k5_wide": CUDA_SOURCES[4]}
 
 # One count per kernel launch; incremented only where the kernel launches,
 # in total, per route, and per (kernel, route, hz shape, wz shape).
@@ -81,6 +85,11 @@ SMEM_LIMIT = 232448
 # side, 8-channel groups staged per tap (C <= 8 * K5_GROUPS), group slots
 # of a halo (two k16 steps), columns per block, bricks per block, threads.
 K5_KS, K5_BS, K5_GROUPS, K5_A_GROUPS, K5_BN, K5_BRICKS, K5_THREADS = 5, 8, 3, 4, 128, 6, 384
+
+# The channels of the DIST_FEATURE stem, the one C that the wgmma_k5_wide
+# route (zband_conv_k5_wide_sm90.cu) takes and the widest k = 5 call of
+# the wgmma_f32 route.
+K5W_C = 48
 
 # The wgmma_f32 route's tile (zband_conv_tf32x3_sm90.cu): channels per
 # chunk (one k8 step), columns per block, bricks per block, threads, and
@@ -166,19 +175,25 @@ def reset_launches() -> None:
 def route(hz: torch.Tensor, wz: torch.Tensor, k: int, bs: int, *operands) -> str:
     """The kernel a CUDA call runs, from its shape and dtype alone. With
     bs * bs = 64, N % 128 == 0 and every operand (hz, wz and the fused
-    call's scale, bias, occ, res) 16-byte aligned, at k = 3 with
-    C % 32 == 0 or for the unfused call (no operands) at k = 5 with
-    C % 8 == 0 and 0 < C <= 24: in bf16 "wgmma" (zband_conv_sm90.cu, k = 3)
-    or "wgmma_k5" (zband_conv_k5_sm90.cu, k = 5), in f32 "wgmma_f32"
-    (zband_conv_tf32x3_sm90.cu, both). Else "wmma" (zband_conv.cu)."""
+    call's scale, bias, occ, res) 16-byte aligned: at k = 3 with
+    C % 32 == 0, "wgmma" (zband_conv_sm90.cu) in bf16 and "wgmma_f32"
+    (zband_conv_tf32x3_sm90.cu) in f32; for the unfused call (no operands)
+    at k = 5 with C % 8 == 0, in bf16 "wgmma_k5" (zband_conv_k5_sm90.cu) at
+    0 < C <= 24 and "wgmma_k5_wide" (zband_conv_k5_wide_sm90.cu) at C = 48,
+    in f32 "wgmma_f32" at 0 < C <= 48. Else "wmma" (zband_conv.cu)."""
     c = hz.shape[-1]
     bf16 = hz.dtype == torch.bfloat16
     ok = ((bf16 or hz.dtype == torch.float32) and bs * bs == 64 and wz.shape[-1] % SM90_BN == 0
           and all(t.data_ptr() % 16 == 0 for t in (hz, wz, *operands) if t is not None))
     if ok and k == 3 and c % SM90_C_MULTIPLE == 0:
         return "wgmma" if bf16 else "wgmma_f32"
-    if ok and k == K5_KS and not operands and c % 8 == 0 and 0 < c <= 8 * K5_GROUPS:
-        return "wgmma_k5" if bf16 else "wgmma_f32"
+    if ok and k == K5_KS and not operands and c % 8 == 0 and 0 < c:
+        if bf16 and c <= 8 * K5_GROUPS:
+            return "wgmma_k5"
+        if bf16 and c == K5W_C:
+            return "wgmma_k5_wide"
+        if not bf16 and c <= K5W_C:
+            return "wgmma_f32"
     return "wmma"
 
 

@@ -2,6 +2,7 @@
 
     python3 -m sps_torch.scripts.zband_sm90_variants [VARIANT.cu ...] [--sweep]
     python3 -m sps_torch.scripts.zband_sm90_variants --k5 [VARIANT.cu ...]
+    python3 -m sps_torch.scripts.zband_sm90_variants --k5-wide [VARIANT.cu ...]
     python3 -m sps_torch.scripts.zband_sm90_variants --f32 [VARIANT.cu ...]
 
 Each VARIANT.cu is a version of sps_torch/csrc/zband_conv_sm90.cu (an
@@ -10,7 +11,7 @@ sps_zband_conv_sm90; with --k5, of zband_conv_k5_sm90.cu with its entry
 point sps_zband_conv_k5_sm90. Each is compiled by nvcc for sm_90a (with
 sps_torch/csrc on the include path) into a shared library under
 build/torch_ext/variants/ and called through ctypes beside the built
-kernel (the wgmma or wgmma_k5 route of sps_torch.ops.zband_conv).
+kernel (the wgmma, wgmma_k5 or wgmma_k5_wide route of sps_torch.ops.zband_conv).
 
 First every kernel is held against the plain version (within 2e-2 of the
 output's max-abs, bf16 against f32) at ragged and full shapes, and each
@@ -30,8 +31,18 @@ operands f32, the bar rtol / atol 1e-4 against the plain version, and the
 shapes the route takes: checks at ragged B for k = 3 (fused and not) and
 the k = 5 stem, then the stem, K3 (C = 160), block8_0.conv1 and
 block8_0.conv2 timed with band-packed weights (the kernel skips their
-all-zero 8 x 8 blocks). Prints one line per shape and a JSON line of all
-times.
+all-zero 8 x 8 blocks). With --k5-wide the copies are of
+zband_conv_k5_wide_sm90.cu (entry point sps_zband_conv_k5_wide_sm90, the
+wgmma_k5_wide route: the C = 48 stem of DIST_FEATURE), the row-staged
+layout that the kernel's weight-stationary one was chosen over
+(sps_torch/scripts/variants/k5_wide_rowstaged.cu) is always among them,
+every variant is also held against the plain version, F.conv2d is timed
+once after the built kernel, and the checks run at ragged B,
+N 128 and 256, band-packed and random weights; then the stem
+(B = 11264, C = 48, N = 128) is timed with its band-packed weight (the
+kernel skips the all-zero blocks it finds there) and with a random one
+(nothing to skip), beside F.conv2d on the same operands. Prints one line
+per shape and a JSON line of all times.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from sps_torch.ops import brick as bk
 from sps_torch.ops import zband_conv as zc
 
 VARIANT_DIR = zc.BUILD_DIR / "variants"
+K5W_ROWSTAGED = Path(__file__).resolve().parent / "variants" / "k5_wide_rowstaged.cu"
 CHECKS = [  # (B, C, N, fused, res): ragged B, two column tiles, a full shape
     (1, 32, 128, True, True), (3, 64, 256, False, False), (5, 160, 128, True, False),
     (535, 32, 256, True, True), (11264, 320, 128, True, False),
@@ -62,6 +74,10 @@ TIMED = {  # name: (C, N, fused, res) at B = 11264
 CHECKS_K5 = [(1, 24, 128, False, False), (3, 16, 256, False, False), (5, 8, 128, False, False),
              (535, 24, 256, False, False), (11264, 24, 128, False, False)]
 TIMED_K5 = {"stem": (24, 128, False, False), "stem N=256": (24, 256, False, False)}
+# --k5-wide: (B, C, N, band-packed) checks and (C, N, band-packed) timed shapes.
+CHECKS_K5W = [(1, 48, 128, True), (3, 48, 256, False), (5, 48, 128, True),
+              (7, 48, 128, False), (535, 48, 256, True), (11263, 48, 128, True)]
+TIMED_K5W = {"dist stem": (48, 128, True), "dist stem random wz": (48, 128, False)}
 # --f32: (B, C, N, fused, res, k) checks and (C, N, fused, res, k) timed shapes.
 CHECKS_F32 = [(1, 32, 128, True, True, 3), (3, 64, 256, False, False, 3),
               (5, 160, 128, True, False, 3), (5, 24, 128, False, False, 5),
@@ -71,7 +87,7 @@ TIMED_F32 = {"stem": (24, 128, False, False, 5), "K3 TC16": (160, 128, False, Fa
              "block8_0.conv2": (160, 128, True, True, 3)}
 
 
-def load_variant(src: Path, k: int = 3, f32: bool = False):
+def load_variant(src: Path, k: int = 3, f32: bool = False, wide: bool = False):
     """Compile one variant and return its C entry point."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     so = VARIANT_DIR / f"{src.stem}.so"
@@ -84,7 +100,7 @@ def load_variant(src: Path, k: int = 3, f32: bool = False):
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     elif k == 5:
-        fn = lib.sps_zband_conv_k5_sm90
+        fn = lib.sps_zband_conv_k5_wide_sm90 if wide else lib.sps_zband_conv_k5_sm90
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
     else:
@@ -166,7 +182,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--sweep", action="store_true", help="time the built kernel over C")
     ap.add_argument("--k5", action="store_true", help="the k = 5 stem kernel's variants")
     ap.add_argument("--f32", action="store_true", help="the wgmma_f32 kernel's variants")
+    ap.add_argument("--k5-wide", action="store_true",
+                    help="the wgmma_k5_wide kernel's variants (the C = 48 stem)")
     args = ap.parse_args(argv)
+    if args.k5_wide:
+        return main_k5_wide(args.variants)
     k = 5 if args.k5 else 3
     dtype = torch.float32 if args.f32 else torch.bfloat16
     if args.f32:
@@ -222,6 +242,51 @@ def main(argv=None) -> dict:
             times["sweep"][c] = time_ms(lambda: call_built(hz, wz, None))
             print(f"sweep C={c:3d} ({c // zc.SM90_CK} chunks): built {times['sweep'][c]:.3f} ms",
                   flush=True)
+    print(json.dumps({"card": card, "times": times}), flush=True)
+    return times
+
+
+def main_k5_wide(variants) -> dict:
+    """--k5-wide: the wgmma_k5_wide kernel and its variants, each held against
+    the plain version, then timed beside each other and F.conv2d."""
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        raise SystemExit("zband_sm90_variants: no CUDA device")
+    zc.build()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    fns = {src.stem: load_variant(src, 5, wide=True) for src in [K5W_ROWSTAGED, *variants]}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, c, n, band in CHECKS_K5W:
+        hz, wz, _ = make(g, b, c, n, False, False, 5, band=band)
+        if zc.route(hz, wz, 5, 8) != "wgmma_k5_wide":
+            raise AssertionError(f"C={c} N={n}: route {zc.route(hz, wz, 5, 8)}")
+        want = zc.zband_conv_ref(hz.float(), wz.float(), 5, 8)
+        top = float(want.abs().max())
+        outs = {"built": call_built(hz, wz, None),
+                **{name: call_variant(fn, hz, wz, None) for name, fn in fns.items()}}
+        errs = {name: float((o.float() - want).abs().max()) for name, o in outs.items()}
+        same = {name: bool(torch.equal(o, outs["built"])) for name, o in outs.items()}
+        print(f"check k=5 B={b} C={c} N={n} {'band' if band else 'random'} wz: max-abs error "
+              f"{errs} (out max-abs {top:.3e}); bit-equal to the built kernel: {same}", flush=True)
+        if max(errs.values()) > 2e-2 * top:
+            raise AssertionError("a kernel disagrees with the plain version")
+    times = {}
+    for shape, (c, n, band) in TIMED_K5W.items():
+        hz, wz, _ = make(g, 11264, c, n, False, False, 5, band=band)
+        x_nchw, w_oihw = hz.permute(0, 3, 1, 2), wz.permute(3, 2, 0, 1)
+        t = {name: [time_ms(lambda: call_variant(fn, hz, wz, None))] for name, fn in fns.items()}
+        t["built"] = [time_ms(lambda: call_built(hz, wz, None)) for _ in range(2)]
+        t["F.conv2d"] = [time_ms(lambda: F.conv2d(x_nchw, w_oihw))]
+        for name, fn in fns.items():
+            t[name].append(time_ms(lambda: call_variant(fn, hz, wz, None)))
+        times[shape] = t
+        print(f"{shape:20s} " + ", ".join(
+            f"{name} {min(v):.3f} ms ({', '.join(f'{x:.3f}' for x in v)})" for name, v in t.items()),
+            flush=True)
+        del hz, wz, x_nchw, w_oihw
     print(json.dumps({"card": card, "times": times}), flush=True)
     return times
 

@@ -5,7 +5,8 @@ seeded numpy buffers.
 
 `zband_conv.route` sends an f32 call to "wgmma_f32" at the shapes the bf16
 wgmma routes take (k = 3 with C % 32 == 0; the unfused k = 5 stem with
-C % 8 == 0, C <= 24; bs = 8, N % 128 == 0, 16-byte aligned operands) and
+C % 8 == 0, C <= 48, which holds the C = 48 stem of DIST_FEATURE; bs = 8,
+N % 128 == 0, 16-byte aligned operands) and
 every other f32 call to "wmma". The `f32_*` helpers of ops/zband_conv.py
 carry the .cu's formulas: the weight split (hi and lo, [tap][8-channel
 chunk][n][8]), its 8 x 8 block flags, the halo's and weight's 16-byte
@@ -23,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_tf32x3 import split
-from test_torch_zband_route import K5_CALLS, WGMMA_CALLS, WMMA_CALLS, _operands
+from test_torch_zband_route import K5_CALLS, K5W_CALLS, WGMMA_CALLS, WMMA_CALLS, _operands
 
 from sps_torch.ops import brick as bk
 from sps_torch.ops import zband_conv as zc
@@ -31,14 +32,18 @@ from sps_torch.ops import zband_conv as zc
 SRC = zc.CSRC / "zband_conv_tf32x3_sm90.cu"
 
 
-@pytest.mark.parametrize("call", sorted({**WGMMA_CALLS, **K5_CALLS}))
+BF16_ROUTES = {**dict.fromkeys(WGMMA_CALLS, "wgmma"), **dict.fromkeys(K5_CALLS, "wgmma_k5"),
+               **dict.fromkeys(K5W_CALLS, "wgmma_k5_wide")}
+
+
+@pytest.mark.parametrize("call", sorted(BF16_ROUTES))
 def test_route_takes_wgmma_f32(call):
-    b, k, bs, c, n, fused, res = {**WGMMA_CALLS, **K5_CALLS}[call]
+    b, k, bs, c, n, fused, res = {**WGMMA_CALLS, **K5_CALLS, **K5W_CALLS}[call]
     hz, wz, rest = _operands(b, k, bs, c, n, torch.float32, fused, res)
     assert zc.route(hz, wz, k, bs, *rest) == "wgmma_f32"
     # bf16 keeps its own routes.
     hz, wz, rest = _operands(b, k, bs, c, n, torch.bfloat16, fused, res)
-    assert zc.route(hz, wz, k, bs, *rest) == ("wgmma" if k == 3 else "wgmma_k5")
+    assert zc.route(hz, wz, k, bs, *rest) == BF16_ROUTES[call]
 
 
 @pytest.mark.parametrize("call", sorted(WMMA_CALLS))
@@ -59,6 +64,13 @@ def test_route_f32_needs_aligned_operands_and_f32_or_bf16():
     hz5, wz5, _ = _operands(2, 5, 8, 24, 128, torch.float32, fused=False)
     assert zc.route(hz5, wz5, 5, 8) == "wgmma_f32"
     assert zc.route(hz5, wz5, 5, 8, *_operands(2, 5, 8, 24, 128, torch.float32)[2]) == "wmma"
+    # The C = 48 stem; C = 40 too (the f32 kernel walks C in 8-channel chunks).
+    for c in (40, 48):
+        hz5, wz5, _ = _operands(2, 5, 8, c, 128, torch.float32, fused=False)
+        assert zc.route(hz5, wz5, 5, 8) == "wgmma_f32"
+    hz5, wz5, _ = _operands(2, 5, 8, 56, 128, torch.float32, fused=False)
+    assert zc.route(hz5, wz5, 5, 8) == "wmma"
+    assert "C % 8 == 0 && C <= 48" in SRC.read_text()
 
 
 def test_route_registry():
@@ -106,11 +118,11 @@ def test_kernel_step_order():
     assert at == sorted(at), marks
 
 
-@pytest.mark.parametrize("k", [3, 5])
-def test_buffers_written_are_not_read_in_the_same_step(k):
+@pytest.mark.parametrize("k,c", [(3, 32), (5, 24), (5, 48)])
+def test_buffers_written_are_not_read_in_the_same_step(k, c):
     p = zc.f32_smem_plan(k)
-    c = 32 if k == 3 else 24
     nsteps = c // zc.F32_CK * p["steps"]
+    assert nsteps == {32: 4, 24: 15, 48: 30}[c]
     for s in range(nsteps):
         q, q1 = s // p["steps"], (s + 1) // p["steps"]
         reads = {("w", s % 2), ("h", q % 2)}
@@ -183,9 +195,10 @@ def _tile(smem, start, lbo, sbo, rows):
 
 
 # (B, k, TCin, TCout or N for a random weight, band-packed): K3's and the
-# stem's band shapes at a reduced B, a ragged B, two column tiles, random weights.
+# stem's band shapes at a reduced B, a ragged B, two column tiles, random
+# weights, and the C = 48 stem of DIST_FEATURE (TCin 4; its 30 steps).
 REPLAYS = [(4, 3, 4, 16, True), (3, 3, 4, 256, False), (6, 5, 2, 16, True),
-           (2, 5, 2, 128, False)]
+           (2, 5, 2, 128, False), (3, 5, 4, 16, True)]
 
 
 @pytest.mark.parametrize("b,k,tcin,tcout,band", REPLAYS)
@@ -232,11 +245,11 @@ def test_descriptors_address_the_split_halo_and_weight(b, k, tcin, tcout, band):
                                    want[..., n0 : n0 + zc.F32_BN], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("k,tcin,skipped", [(3, 16, 0.70), (5, 2, 1 / 3)])
+@pytest.mark.parametrize("k,tcin,skipped", [(3, 16, 0.70), (5, 2, 1 / 3), (5, 4, 0.5)])
 def test_block_flags_skip_the_band_zeros(k, tcin, skipped):
     """At K2 / K3's band (C = 160, N = 128) 70% of the 8 x 8 weight blocks
     are zero and are zero-filled without a read; at the stem's (C = 24) a
-    third."""
+    third; at the DIST_FEATURE stem's (C = 48) half."""
     rng = np.random.default_rng(k)
     w = rng.standard_normal((k, k, k, tcin, 16)).astype(np.float32)
     wz = bk.pack_zband_kernel(torch.from_numpy(w), 8, k // 2).numpy()

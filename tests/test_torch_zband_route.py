@@ -4,13 +4,15 @@ the CPU.
 `zband_conv.route` picks, from a call's shape alone, the kernel a CUDA
 tensor runs: the wgmma kernel (sps_torch/csrc/zband_conv_sm90.cu) for the
 L0 block8 convs and the k = 3 microbenchmark, the k = 5 wgmma kernel
-(zband_conv_k5_sm90.cu) for the stem, in f32 at those shapes the 3xTF32
-wgmma kernel (zband_conv_tf32x3_sm90.cu, tests/test_torch_zband_f32_route.py),
-the WMMA kernel (zband_conv.cu) for everything else. The wgmma kernels read their operands out of shared
-memory through descriptors; the `sm90_*` and `k5_*` helpers carry the
-same formulas as the .cu files, and the tests replay the copies and
-descriptors on seeded numpy buffers: every A and B tile must come out as
-the exact slice of hz and wz it stands for."""
+(zband_conv_k5_sm90.cu) for the stem, the wide k = 5 wgmma kernel
+(zband_conv_k5_wide_sm90.cu, tests/test_torch_zband_k5_wide.py) for the
+C = 48 stem of DIST_FEATURE, in f32 at those shapes the 3xTF32 wgmma
+kernel (zband_conv_tf32x3_sm90.cu, tests/test_torch_zband_f32_route.py),
+the WMMA kernel (zband_conv.cu) for everything else. The wgmma kernels
+read their operands out of shared memory through descriptors; the `sm90_*`
+and `k5_*` helpers carry the same formulas as the .cu files, and the tests
+replay the copies and descriptors on seeded numpy buffers: every A and B
+tile must come out as the exact slice of hz and wz it stands for."""
 
 import re
 from pathlib import Path
@@ -49,9 +51,16 @@ K5_CALLS = {
     "k=5 C=8": (1, 5, 8, 8, 128, False, False),
     "k=5 N=256": (5, 5, 8, 24, 256, False, False),
 }
+# The stem of DIST_FEATURE (C = 48), which the wide k = 5 kernel takes.
+K5W_CALLS = {
+    "stem C=48 (DIST_FEATURE)": (2, 5, 8, 48, 128, False, False),
+    "k=5 C=48 B=7": (7, 5, 8, 48, 128, False, False),
+    "k=5 C=48 N=256": (1, 5, 8, 48, 256, False, False),
+}
 WMMA_CALLS = {
     "stem fused": (2, 5, 8, 24, 128, True, True),
-    "stem C=48 (DIST_FEATURE)": (2, 5, 8, 48, 128, False, False),
+    "stem C=48 fused": (2, 5, 8, 48, 128, True, False),
+    "k=5 C=56": (2, 5, 8, 56, 128, False, False),
     "k=5 C % 8 != 0": (2, 5, 8, 12, 128, False, False),
     "k=5 bs=4": (2, 5, 4, 24, 128, False, False),
     "k=5 N=64": (2, 5, 8, 24, 64, False, False),
@@ -83,6 +92,16 @@ def test_route_takes_wgmma_k5(call):
     assert zc.route(hz32, wz32, k, bs, *rest32) == "wgmma_f32"
 
 
+@pytest.mark.parametrize("call", sorted(K5W_CALLS))
+def test_route_takes_wgmma_k5_wide(call):
+    b, k, bs, c, n, fused, res = K5W_CALLS[call]
+    hz, wz, rest = _operands(b, k, bs, c, n, fused=fused, res=res)
+    assert zc.route(hz, wz, k, bs, *rest) == "wgmma_k5_wide"
+    # f32 operands of the same shape take the 3xTF32 wgmma kernel.
+    hz32, wz32, rest32 = _operands(b, k, bs, c, n, torch.float32, fused, res)
+    assert zc.route(hz32, wz32, k, bs, *rest32) == "wgmma_f32"
+
+
 @pytest.mark.parametrize("call", sorted(WMMA_CALLS))
 def test_route_keeps_wmma(call):
     b, k, bs, c, n, fused, res = WMMA_CALLS[call]
@@ -105,6 +124,11 @@ def test_route_needs_aligned_operands():
     assert zc.route(hz, wz, 5, 8) == "wgmma_k5"
     shifted = torch.zeros(wz.numel() + 1, dtype=wz.dtype)[1:].view(wz.shape)
     assert zc.route(hz, shifted, 5, 8) == "wmma"
+    # And the DIST_FEATURE stem.
+    hz, wz, _ = _operands(2, 5, 8, 48, 128, fused=False)
+    assert zc.route(hz, wz, 5, 8) == "wgmma_k5_wide"
+    shifted = torch.zeros(hz.numel() + 1, dtype=hz.dtype)[1:].view(hz.shape)
+    assert zc.route(shifted, wz, 5, 8) == "wmma"
 
 
 def test_variants_script_needs_a_card():
@@ -120,7 +144,8 @@ def test_reset_launches():
     zc.ROUTE_LAUNCHES["zband_conv_fused"]["wgmma"] = 2
     zc.reset_launches()
     assert zc.LAUNCHES == {"zband_conv": 0, "zband_conv_fused": 0}
-    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0, "wgmma_k5": 0, "wgmma_f32": 0}
+    assert zc.ROUTE_LAUNCHES == {name: {"wmma": 0, "wgmma": 0, "wgmma_k5": 0, "wgmma_f32": 0,
+                                        "wgmma_k5_wide": 0}
                                  for name in zc.LAUNCHES}
 
 
