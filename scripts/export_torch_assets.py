@@ -4,7 +4,9 @@ its checkpoints: files the port reads without JAX, flax or orbax.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_assets.py [--scans 20]
         [--only ckpt,loc,loop,ckpt_v1,parity,predict,train,baselines,loc_baselines,hash,
-                sp,dp,baseline_train,nclt,occupancy,topo_reuse]
+                sp,dp,baseline_train,nclt,occupancy,topo_reuse,shipping,zband_levels,
+                dist_stream,measure_tools,halo,mapmos_engines,localize_soft,spsmodel,
+                gather_stream,profile_stream,register,topology,int8_divergence]
 
 Writes, under sps_torch/assets/:
   ckpt_loc_movers_v2.npz          the round-5 checkpoint ckpt_loc_movers_v2/best
@@ -144,18 +146,76 @@ Writes, under sps_torch/assets/:
   topo_reuse_pin.npz              scripts/measure_topo_reuse.py's loop
                                   (jax_topo_reuse) at TOPO_META's cut: per step
                                   of 0.2 / 1.0 / 6.5 m, every scan's topology
-                                  misses, valid points and fingerprint.
+                                  misses, valid points and fingerprint;
+  shipping_pin.npz,               sps_tpu's StreamingFilter (write_stream_pin:
+  zband_levels_stream_pin.npz,    per scan the scores, keep and stats) on the
+  dist_stream_pin.npz             inputs of tests/test_torch_shipping.py (the
+                                  shipping TPU options, three scans),
+                                  tests/test_torch_zband_levels_stream.py
+                                  (ZBAND_LEVELS 2 and 3, one rebuild scan each)
+                                  and tests/test_torch_dist.py (the distance
+                                  feature, three scans), which read them; each
+                                  records its inputs (the test's constants and
+                                  fingerprints of the map, scans, poses and
+                                  weights: test_torch_stream.pin_record);
+  measure_tools_pin.npz           jax_occupancy and jax_topo_reuse on
+                                  tests/test_torch_measure_tools.py's world and
+                                  trajectories, which that test reads, with its
+                                  inputs recorded the same way;
+  gather_stream_pin.npz           the same for tests/test_torch_gather_engine.py
+                                  (config_small.yaml as shipped, two scans);
+  spsmodel_pin.npz,               sps_tpu's SPSModel (spsmodel_arrays: scores and
+  halo_pin.npz                    overflow) on the points and weights of
+                                  tests/test_torch_gather_engine.py (gather),
+                                  tests/test_torch_brick_engine.py (brick at
+                                  sps_tpu's defaults), tests/test_torch_config.py
+                                  (the default config) and tests/test_torch_halo.py
+                                  (halo, int8 and head_fold off and on), which read
+                                  them (records: test_torch_stream.model_record);
+  mapmos_engines_pin.npz          sps_tpu's MapMOS logits on the brick and voxelize
+                                  engines, read by
+                                  tests/test_torch_mapmos_engines.py;
+  localize_soft_pin.npz           sps_tpu's run_localization with sps-soft (per-scan
+                                  poses, the result's entries), read by
+                                  tests/test_torch_localize_soft.py;
+  profile_stream_pin.npz          scripts/profile_stream.py's three sps_tpu stages
+                                  (jax_profile_stages) on one scan, read by
+                                  tests/test_torch_profile_stream.py;
+  register_pin.npz                sps_tpu.register's maps (lut and probing),
+                                  correspondences, distances, yaw search,
+                                  registrations and pyramid on the world and
+                                  cases() of tests/test_torch_register.py,
+                                  which reads it;
+  topology_pin.npz                sps_tpu's voxelize and build_levels on the
+                                  points and capacities of
+                                  tests/test_torch_topology.py, which reads it;
+  int8_divergence_pin.npz         jitted sps_tpu's scores and, per call of its
+                                  brick_conv_int8, the recorded input, codes,
+                                  pre-round values and scales, on the two worlds
+                                  of tests/test_torch_int8_divergence.py, which
+                                  reads it.
+
+The tests that read the older pins (chip_smoke.py reads several as well):
+loop_tiny tests/test_torch_loop.py; loc_movers_v2 test_torch_assets.py;
+int8_parity test_torch_int8_parity.py; predict test_torch_predict.py;
+train_step test_torch_train_step.py; loc_baselines
+test_torch_localize_baselines.py and test_torch_lts.py; hash_engines
+test_torch_gather_engine.py; sp_scores and sp_step test_torch_spatial.py; dp_step
+test_torch_dp.py; baseline_train test_torch_train_baselines.py; nclt
+test_torch_nclt.py; occupancy and topo_reuse only chip_smoke.py.
 
 Runs on the CPU: ckpt, loop, train, baselines, hash, sp, dp, baseline_train, nclt and
 occupancy in a few minutes each, loc and topo_reuse ~10-15 min
 (--scans 20), parity and predict several minutes each (bf16 on XLA:CPU is slow),
-loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU).
+loc_baselines ~80 min (MOS4D in bf16 and MapMOS at 78k points on XLA:CPU), the
+pins of the tests' own inputs (shipping through int8_divergence) 1-2 min each.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import os
 import shutil
@@ -1392,16 +1452,415 @@ def export_topo_reuse_pin():
         + f" ({time.time() - t:.0f} s)")
 
 
+def tests_module(name):
+    """A module of tests/: the pins below run sps_tpu on a test's own inputs,
+    which that module builds."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    return importlib.import_module(name)
+
+
+def write_pin(name, records):
+    """sps_torch/assets/<name>: each key's arrays under "<key>/", and under
+    `meta` each key's record of its inputs, which the test that reads the
+    pin checks against its own (tests/test_torch_stream.py's pinned)."""
+    out = {f"{key}/{k}": np.asarray(v) for key, (_, arrays) in records.items()
+           for k, v in arrays.items()}
+    meta = {key: record for key, (record, _) in records.items()}
+    np.savez_compressed(os.path.join(ASSETS, name), meta=np.asarray(json.dumps(meta)), **out)
+    log(f"{name}: {', '.join(meta)}")
+
+
+def write_stream_pin(name, runs):
+    """sps_tpu's StreamingFilter over each run's scans: per run key and scan
+    the scores, keep and stats (tests/test_torch_stream.py's pinned_runs)."""
+    import jax
+    from sps_tpu.stream.engine import StreamingFilter
+
+    stream = tests_module("test_torch_stream")
+    records = {}
+    for key, (cfg, sd, mp, argss, run_meta) in runs.items():
+        filt = StreamingFilter(cfg, jax.tree.map(np.asarray, flax_tree(sd)), mp)
+        arrays = {}
+        for i, args in enumerate(argss):
+            scores, keep, stats = filt(*args)
+            arrays.update({f"{i}/scores": scores, f"{i}/keep": keep,
+                           **{f"{i}/stats/{k}": v for k, v in stats.items()}})
+        records[key] = (stream.pin_record(run_meta, mp, argss, sd), arrays)
+    write_pin(name, records)
+
+
+def export_shipping_pin():
+    """sps_tpu's StreamingFilter at config.yaml's TPU options on
+    tests/test_torch_shipping.py's world (three scans: rebuild, reuse,
+    rebuild)."""
+    from sps_tpu import config as jcfg_mod
+
+    ship = tests_module("test_torch_shipping")
+    with tempfile.TemporaryDirectory() as root:
+        _, mp, argss, sd = ship.inputs(root)
+    write_stream_pin("shipping_pin.npz",
+                     {"shipping": (ship._load(jcfg_mod), sd, mp, argss, ship.META)})
+
+
+def export_zband_levels_pin():
+    """sps_tpu's StreamingFilter in conv_mode zband at ZBAND_LEVELS 2 and 3 on
+    tests/test_torch_zband_levels_stream.py's world (one rebuild scan)."""
+    from sps_tpu import config as jcfg_mod
+
+    zl = tests_module("test_torch_zband_levels_stream")
+    runs = {}
+    for levels in zl.LEVELS:
+        with tempfile.TemporaryDirectory() as root:
+            _, mp, argss, sd = zl.inputs(root, levels)
+        runs[f"levels{levels}"] = (zl.with_levels(zl._load(jcfg_mod), levels), sd, mp, argss,
+                                   {**zl.META, "zband_levels": levels})
+    write_stream_pin("zband_levels_stream_pin.npz", runs)
+
+
+def export_dist_stream_pin():
+    """sps_tpu's StreamingFilter with the distance feature on
+    tests/test_torch_dist.py's world (three scans: rebuild, reuse, rebuild)."""
+    from sps_tpu import config as jcfg_mod
+
+    dist = tests_module("test_torch_dist")
+    with tempfile.TemporaryDirectory() as root:
+        _, mp, argss, sd = dist.inputs(root)
+    write_stream_pin("dist_stream_pin.npz", {"dist": (dist._with_dist(dist._load(jcfg_mod)), sd,
+                                                      mp, argss, dist.STREAM_META)})
+
+
+def spsmodel_arrays(cfg, sd, args):
+    """sps_tpu's SPSModel (jitted) on pad_point_batch(*args) with the port's
+    weights sd: the scores and the overflow flags."""
+    import jax
+
+    from sps_tpu.models.spsnet import SPSModel
+    from sps_tpu.structs import pad_point_batch
+
+    scores, aux = jax.jit(lambda v, b: SPSModel(cfg).apply(v, b))(
+        jax.tree.map(np.asarray, flax_tree(sd)), pad_point_batch(*args))
+    return {"scores": scores, "overflow": aux["overflow"]}
+
+
+def export_spsmodel_pin():
+    """sps_tpu's SPSModel on the gather engine (tests/test_torch_gather_engine.py),
+    on the brick engine at sps_tpu's defaults (tests/test_torch_brick_engine.py)
+    and at the default config (tests/test_torch_config.py), on those tests'
+    points and weights."""
+    from sps_torch.models import spsnet as tsps
+    from sps_torch.models.minkunet import MinkUNetConfig as TUNetConfig
+    from sps_torch.structs import Capacities as TCaps
+    from sps_tpu.models.minkunet import MinkUNetConfig as JUNetConfig
+    from sps_tpu.models.spsnet import SPSConfig as JSPSConfig
+    from sps_tpu.structs import Capacities as JCaps
+
+    ge = tests_module("test_torch_gather_engine")
+    be = tests_module("test_torch_brick_engine")
+    tc = tests_module("test_torch_config")
+    stream = tests_module("test_torch_stream")
+    sd = tsps.init_state_dict(ge.TCFG, seed=0)
+    gather_args = (*ge._points(3), ge.CAPS["points"])
+    brick_args = (*ge._points(5), ge.CAPS["points"])
+    default_cfg = tc.default_config(tsps.SPSConfig, TCaps, TUNetConfig)
+    default_sd = tsps.init_state_dict(default_cfg, seed=0)
+    runs = {"gather": (ge.TCFG, ge.JCFG, sd, gather_args),
+            "brick_defaults": (be.brick_defaults(tsps.SPSConfig, TCaps, TUNetConfig),
+                               be.brick_defaults(JSPSConfig, JCaps, JUNetConfig), sd, brick_args),
+            "default_engine": (default_cfg, tc.default_config(JSPSConfig, JCaps, JUNetConfig),
+                               default_sd, tc.default_inputs())}
+    write_pin("spsmodel_pin.npz", {
+        key: (stream.model_record(tcfg, w, args), spsmodel_arrays(jcfg, w, args))
+        for key, (tcfg, jcfg, w, args) in runs.items()})
+
+
+def export_gather_stream_pin():
+    """sps_tpu's StreamingFilter on config_small.yaml as shipped (the gather
+    engine), narrowed, on tests/test_torch_gather_engine.py's world."""
+    from sps_tpu import config as jcfg_mod
+
+    ge = tests_module("test_torch_gather_engine")
+    with tempfile.TemporaryDirectory() as root:
+        _, mp, argss, sd = ge.stream_inputs(root)
+    write_stream_pin("gather_stream_pin.npz",
+                     {"gather": (ge._load(jcfg_mod), sd, mp, argss, ge.STREAM_META)})
+
+
+def export_halo_pin():
+    """sps_tpu's SPSModel in conv_mode halo (int8 and head_fold off, and on) on
+    tests/test_torch_halo.py's points and weights: the scores and overflow."""
+    h = tests_module("test_torch_halo")
+    m = tests_module("test_torch_model")
+    stream = tests_module("test_torch_stream")
+    sd, pts = h.inputs()
+    args = (*pts, m.CAPS["points"])
+    write_pin("halo_pin.npz", {
+        opts: (stream.model_record(h.halo(m.TCFG, opts), sd, args),
+               spsmodel_arrays(h.halo(m.JCFG, opts), sd, args)) for opts in h.OPTIONS})
+
+
+def export_mapmos_engines_pin():
+    """sps_tpu's MapMOS on the brick and voxelize engines on
+    tests/test_torch_mapmos_engines.py's points and weights: the logits and
+    overflow."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu.models import mapmos
+    from sps_tpu.structs import Capacities, pad_point_batch
+
+    me = tests_module("test_torch_mapmos_engines")
+    records = {}
+    for engine in me.ENGINES:
+        mm, args, idx = me.inputs(engine)
+        net = mapmos.MapMOSNet(mapmos.MapMOSConfig(caps=Capacities(**me.CAPS),
+                                                   **me.config(engine)))
+        logits, aux = jax.jit(net.apply)(jax.tree.map(np.asarray, flax_tree(mm.state_dict())),
+                                         pad_point_batch(*args), jnp.asarray(idx))
+        records[engine] = (me.pin_record(engine, mm, args, idx),
+                           {"logits": logits, "overflow": aux["overflow"]})
+    write_pin("mapmos_engines_pin.npz", records)
+
+
+def export_localize_soft_pin():
+    """sps_tpu's run_localization with the sps-soft filter on
+    tests/test_torch_localize_soft.py's world and weights: each scan's final
+    pose and the result's entries that the test compares."""
+    import jax
+
+    from sps_tpu import config as jcfg_mod
+    from sps_torch import config as tcfg_mod
+    from sps_torch.data import synthetic as tsyn
+    from sps_torch.models import spsnet as tsps
+
+    ls = tests_module("test_torch_localize_soft")
+    loc = tests_module("test_torch_localize")
+    with tempfile.TemporaryDirectory() as root:
+        tsyn.generate_dense(root, **ls.SOFT)
+        sd = tsps.init_state_dict(ls.config(tcfg_mod, root).sps_config(1), seed=4)
+        want, poses = loc._run_jax(ls.config(jcfg_mod, root),
+                                   jax.tree.map(np.asarray, flax_tree(sd)), "20220629",
+                                   "sps-soft", **ls.KW)
+    write_pin("localize_soft_pin.npz", {"sps-soft": (ls.pin_record(sd), {
+        "poses": poses, **{f"result/{k}": want[k] for k in ls.RESULT}})})
+
+
+def jax_profile_stages(cfg, n):
+    """scripts/profile_stream.py's stage functions (the atlas engine)."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu.models import spsnet
+    from sps_tpu.models.minkunet import MinkUNet
+    from sps_tpu.ops import atlas as atl
+    from sps_tpu.ops import brick as bk
+    from sps_tpu.ops import voxelize as vox
+
+    sps_cfg = cfg.sps_config(batch_size=1)
+    bcap = sps_cfg.caps.bricks[0]
+    vsize = cfg.voxel_size
+
+    @jax.jit
+    def stage_vox(map_grid, scan_xyz, valid):
+        coords = vox.quantize(scan_xyz, vsize)
+        zeros = jnp.zeros((n,), jnp.int32)
+        ones = jnp.ones((n,), jnp.int32)
+        grid, p2s = atl.voxelize_bricks(
+            coords, zeros, ones, valid,
+            num_time=2, brick_capacity=bcap,
+            brick_side=sps_cfg.brick_side, extent=sps_cfg.atlas_extent,
+        )
+        bvalid = jnp.arange(bcap) < grid.num_bricks
+        batch0 = jnp.where(bvalid, 0, -1)
+        mrow = atl.atlas_rows(map_grid, batch0, grid.coords[:, 1:])
+        mocc = bk.take_rows(map_grid.occ, mrow)[..., 0]
+        overlap = grid.occ[..., 1] * mocc
+        occ = grid.occ.at[..., 0].set(overlap)
+        return grid._replace(occ=occ), p2s
+
+    @jax.jit
+    def stage_topo(grid):
+        return spsnet.build_levels_from_grid(grid, sps_cfg)[0]
+
+    @jax.jit
+    def stage_unet(variables, levels, p2s, valid):
+        ucfg = sps_cfg.unet
+        occ0 = levels[0].grid.occ
+        feats0 = (0.5 * jnp.repeat(occ0, ucfg.in_channels, axis=-1)).astype(ucfg.dtype)
+        unet = MinkUNet(ucfg, name="MinkUNet")
+        out = unet.apply(
+            {
+                "params": variables["params"]["MinkUNet"],
+                "batch_stats": variables["batch_stats"]["MinkUNet"],
+            },
+            feats0,
+            levels,
+            False,
+        )
+        per_point = vox.devoxelize_flat(
+            out, p2s, jnp.ones((n,), jnp.int32), num_time=2,
+            channels=ucfg.out_channels,
+        )[:, 0].astype(jnp.float32)
+        return jax.nn.sigmoid(per_point) * valid
+
+    return stage_vox, stage_topo, stage_unet
+
+
+def export_profile_stream_pin():
+    """sps_tpu's three stages (jax_profile_stages) on
+    tests/test_torch_profile_stream.py's scan: the stage-1 grid and
+    point-to-slot map, each level's count, overflow and nbr27, the scores."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu import config as jcfg_mod
+    from sps_tpu.stream.engine import build_map_atlas
+
+    pst = tests_module("test_torch_profile_stream")
+    with tempfile.TemporaryDirectory() as root:
+        _, stable, x, v, sd = pst.inputs(root)
+    cfg = pst._load(jcfg_mod)
+    j_vox, j_topo, j_unet = jax_profile_stages(cfg, len(v))
+    grid, p2s = j_vox(build_map_atlas(stable, cfg.voxel_size, cfg.tpu.brick_side),
+                      jnp.asarray(x), jnp.asarray(v))
+    levels = j_topo(grid)
+    scores = j_unet(jax.tree.map(np.asarray, flax_tree(sd)), levels, p2s,
+                    jnp.asarray(v, jnp.float32))
+    # occ is bf16, which npz cannot hold; the test compares it in f32.
+    arrays = {"grid/num_bricks": grid.num_bricks, "grid/coords": grid.coords,
+              "grid/occ": np.asarray(grid.occ).astype(np.float32), "p2s": p2s, "scores": scores, "n_levels": len(levels)}
+    for li, lv in enumerate(levels):
+        arrays[f"levels/{li}/nbr27"] = lv.nbr27
+        arrays.update({f"levels/{li}/{k}": getattr(lv.grid, k)
+                       for k in ("num_rows", "num_bricks", "overflow") if hasattr(lv.grid, k)})
+    write_pin("profile_stream_pin.npz", {"stages": (pst.pin_record(stable, x, v, sd), arrays)})
+
+
+def export_measure_tools_pin():
+    """sps_tpu's occupancy (jax_occupancy) and topology misses (jax_topo_reuse)
+    on tests/test_torch_measure_tools.py's world and trajectories."""
+    from sps_tpu import config as jcfg_mod
+    from sps_torch import config as tcfg_mod
+    from sps_torch.models import spsnet as tsps
+
+    mt = tests_module("test_torch_measure_tools")
+    with tempfile.TemporaryDirectory() as root:
+        stable, xs, vs = mt.shipping_world(root, scans=mt.META["world_scans"])
+    sd = tsps.init_state_dict(mt._cfg(tcfg_mod).sps_config(1), seed=mt.META["weights_seed"])
+    cfg = mt._cfg(jcfg_mod)
+    arrays = {"occupancy": jax_occupancy(cfg, stable, xs, vs)}
+    topo = jax_topo_reuse(cfg, flax_tree(sd), stable, mt.STEPS, mt.K, mt.SCANS, **mt.TRAJ)
+    for step, rows in topo.items():
+        arrays.update({f"topo/{step}/{k}": col
+                       for k, col in zip(("miss", "valid", "xyz_sha"), zip(*rows))})
+    write_pin("measure_tools_pin.npz",
+              {"measure_tools": (mt.pin_record(stable, xs, vs, sd), arrays)})
+
+
+def export_register_pin():
+    """sps_tpu's registration (sps_tpu.register) on tests/test_torch_register.py's
+    world and cases(): both maps, the correspondences, distances, yaw search,
+    registrations, pyramid, smallest eigenvectors and SE(3) exponentials that
+    the test compares."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu import register as jreg
+
+    rg = tests_module("test_torch_register")
+    world = rg.make_world()
+    cases = rg.cases(world)
+    vms = {lut: jreg.build_voxel_map(world, rg.VOXEL, lut=flag) for lut, flag in rg.LUTS.items()}
+    nv = int(vms["probes"].num_voxels)
+    arrays = {"probes/num_voxels": nv, "probes/centroids": vms["probes"].centroids[:nv],
+              "probes/normals": vms["probes"].normals[:nv],
+              **{f"lut/{k}": getattr(vms["lut"], k)
+                 for k in ("lut", "lut_dims", "lut_origin", "centroids")}}
+    for lut, vm in vms.items():
+        p, v = map(jnp.asarray, cases["query1"])
+        arrays.update(zip((f"{lut}/correspond/{k}" for k in "cnh"), jreg._correspond(vm, p, v)))
+        p, v = map(jnp.asarray, cases["query3"])
+        arrays[f"{lut}/distance"] = jreg.point_map_distance(vm, p, v, cap=1.0)
+        pose, stats = jax.jit(lambda s, v, g: jreg.register(vm, s, v, g, iters=20))(
+            *map(jnp.asarray, cases["register"]))
+        arrays.update({f"{lut}/register/pose": pose, f"{lut}/register/inliers": stats["inliers"],
+                       f"{lut}/register/rmse": stats["rmse"]})
+    vm = vms["lut"]
+    p, v = cases["query2"]
+    cols, h = jreg._correspond_cols(vm, jnp.concatenate([vm.centroids, vm.normals], -1),
+                                    *(jnp.asarray(p[:, i]) for i in range(3)), jnp.asarray(v))
+    arrays.update({"cols/c": np.stack([np.asarray(c) for c in cols], -1), "cols/h": h,
+                   "yaw/pose": jreg.yaw_search(vm, *map(jnp.asarray, cases["yaw"])),
+                   "evec": jreg._smallest_evec(jnp.asarray(cases["cov"][0])),
+                   "se3": np.stack([jreg._exp_se3(jnp.asarray(d)) for d in cases["se3"]])})
+    levels = tuple(jreg.build_voxel_map(world, v) for v in (1.6, rg.VOXEL))
+    for start in (0, 1):
+        scan, valid, guess, *w = cases[f"pyramid{start}"]
+        pose, stats = jax.jit(lambda vms, s, v, g, pw: jreg.register_pyramid(
+            vms, s, v, g, point_w=pw))(levels, *map(jnp.asarray, (scan, valid, guess)),
+                                       jnp.asarray(w[0]) if w else None)
+        arrays.update({f"pyramid{start}/pose": pose, f"pyramid{start}/inliers": stats["inliers"]})
+    write_pin("register_pin.npz", {"register": (rg.pin_record(world), arrays)})
+
+
+def export_topology_pin():
+    """sps_tpu's voxelize and build_levels (jitted) on
+    tests/test_torch_topology.py's points at its capacities: every array the
+    test compares bit for bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from sps_tpu.ops import topology as jtopo
+    from sps_tpu.ops import voxelize as jvox
+
+    tp = tests_module("test_torch_topology")
+    records = {}
+    for case, cap in tp.VOXEL_CAPS.items():
+        coords, batch, t, valid, feats = map(jnp.asarray, tp._points(0))
+        g, p2v, pooled = jax.jit(lambda *a: jvox.voxelize(
+            *a, num_time=tp.T, voxel_capacity=cap, features=feats))(coords, batch, t, valid)
+        records[f"voxelize/{case}"] = (tp.pin_record(case, 0, cap), {
+            **tp.grid_arrays(g, "grid/"), "point2voxel": p2v, "pooled": pooled,
+            "devoxelize": jvox.devoxelize(pooled, p2v, t)})
+    for case, caps in tp.LEVEL_CAPS.items():
+        def run(c, b, tt, v):
+            g, _, _ = jvox.voxelize(c, b, tt, v, num_time=tp.T, voxel_capacity=caps[0])
+            return jtopo.build_levels(g, num_levels=5, capacities=caps, kernel_sizes=tp.KS)
+
+        levels = jax.jit(run)(*map(jnp.asarray, tp._points(1)[:4]))
+        records[f"levels/{case}"] = (tp.pin_record(case, 1, caps), tp.level_arrays(levels))
+    write_pin("topology_pin.npz", records)
+
+
+def export_int8_divergence_pin():
+    """sps_tpu's jitted filter on each world of
+    tests/test_torch_int8_divergence.py, its int8 conv recording: the scores
+    and, per call of brick_conv_int8, the records the test compares."""
+    dv = tests_module("test_torch_int8_divergence")
+    records = {}
+    for name in sorted(dv.WORLDS):
+        s_j, rec_j = dv.sps_tpu_world(name)
+        records[name] = (dv.pin_record(name), {
+            "s_j": s_j, "calls": len(rec_j),
+            **{f"{i}/{k}": rec[k] for i, rec in enumerate(rec_j) for k in dv.RECORD_KEYS}})
+    write_pin("int8_divergence_pin.npz", records)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=20,
                     help="scans per movers sequence for the localization and predict pins (>= 20)")
     ap.add_argument("--only", default="ckpt,loc,loop,ckpt_v1,parity,predict,train,"
                                       "baselines,loc_baselines,hash,sp,dp,baseline_train,nclt,"
-                                      "occupancy,topo_reuse",
+                                      "occupancy,topo_reuse,shipping,zband_levels,dist_stream,"
+                                      "measure_tools,halo,mapmos_engines,localize_soft,spsmodel,"
+                                      "gather_stream,profile_stream,register,topology,"
+                                      "int8_divergence",
                     help="comma-separated subset of ckpt, loc, loop, ckpt_v1, parity, "
                          "predict, train, baselines, loc_baselines, hash, sp, dp, "
-                         "baseline_train, nclt, occupancy, topo_reuse")
+                         "baseline_train, nclt, occupancy, topo_reuse, shipping, "
+                         "zband_levels, dist_stream, measure_tools, halo, mapmos_engines, "
+                         "localize_soft, spsmodel, gather_stream, profile_stream, register, topology, "
+                         "int8_divergence")
     args = ap.parse_args(argv)
     os.makedirs(ASSETS, exist_ok=True)
     parts = set(args.only.split(","))
@@ -1438,6 +1897,32 @@ def main(argv=None):
         export_occupancy_pin()
     if "topo_reuse" in parts:
         export_topo_reuse_pin()
+    if "shipping" in parts:
+        export_shipping_pin()
+    if "zband_levels" in parts:
+        export_zband_levels_pin()
+    if "dist_stream" in parts:
+        export_dist_stream_pin()
+    if "measure_tools" in parts:
+        export_measure_tools_pin()
+    if "halo" in parts:
+        export_halo_pin()
+    if "mapmos_engines" in parts:
+        export_mapmos_engines_pin()
+    if "localize_soft" in parts:
+        export_localize_soft_pin()
+    if "spsmodel" in parts:
+        export_spsmodel_pin()
+    if "gather_stream" in parts:
+        export_gather_stream_pin()
+    if "profile_stream" in parts:
+        export_profile_stream_pin()
+    if "register" in parts:
+        export_register_pin()
+    if "topology" in parts:
+        export_topology_pin()
+    if "int8_divergence" in parts:
+        export_int8_divergence_pin()
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 voxelize_bricks, downsample_bricks and build_brick_levels bit-equal at brick
 sides 4 and 8; brick_conv in "region" mode against sps_tpu's region and the
 port's halo mode; SPSModel on the brick engine at sps_tpu's defaults (brick
-side 4, conv_mode region), f32 scores at rtol 1e-3 / atol 1e-4; with INT8
+side 4, conv_mode region), f32 scores at rtol 1e-3 / atol 1e-4 (sps_tpu's
+pinned by scripts/export_torch_assets.py --only spsmodel in
+sps_torch/assets/spsmodel_pin.npz); with INT8
 on at side 8; the int8 conv's channel-chunked launches (C > 128, the brick
 engine's L3) against one launch's plain version, bit for bit. MapMOS on the
 brick engine: tests/test_torch_mapmos_engines.py."""
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_gather_engine import CAPS, NARROW, T, _points, weights  # noqa: F401
+from test_torch_stream import model_record, pinned
 
 from sps_torch.models import spsnet as tsps
 from sps_torch.models.minkunet import MinkUNetConfig as TUNetConfig
@@ -22,12 +25,7 @@ from sps_torch.ops import brick as tbk
 from sps_torch.ops import brick_conv_int8 as bi8
 from sps_torch.structs import Capacities as TCaps
 from sps_torch.structs import pad_point_batch as tpad
-from sps_tpu.models.minkunet import MinkUNetConfig as JUNetConfig
-from sps_tpu.models.spsnet import SPSConfig as JSPSConfig
-from sps_tpu.models.spsnet import SPSModel as JSPSModel
 from sps_tpu.ops import brick as jbk
-from sps_tpu.structs import Capacities as JCaps
-from sps_tpu.structs import pad_point_batch as jpad
 
 BCAPS = (96, 64, 64, 32, 32)
 
@@ -115,16 +113,22 @@ def test_brick_conv_region(dtype):
         assert (got - halo).abs().max() <= 2e-2 * halo.abs().max()
 
 
+def brick_defaults(sps_config, caps, unet_config):
+    """Either package's SPSConfig at its defaults (engine brick, brick side
+    4, conv_mode region), narrowed, with the bricks this test's points need."""
+    return sps_config(voxel_size=0.25, caps=caps(**dict(CAPS, bricks=(512, 256, 128, 64, 64))),
+                      unet=unet_config(**NARROW))
+
+
 def test_spsmodel_brick_engine_at_sps_tpus_defaults(weights):
     """engine brick, brick side 4, conv_mode region: sps_tpu's defaults."""
-    sd, tree = weights
-    caps = dict(CAPS, bricks=(512, 256, 128, 64, 64))
-    jcfg = JSPSConfig(voxel_size=0.25, caps=JCaps(**caps), unet=JUNetConfig(**NARROW))
-    tcfg = tsps.SPSConfig(voxel_size=0.25, caps=TCaps(**caps), unet=TUNetConfig(**NARROW))
+    sd, _ = weights
+    tcfg = brick_defaults(tsps.SPSConfig, TCaps, TUNetConfig)
     assert (tcfg.engine, tcfg.brick_side, tcfg.unet.conv_mode) == ("brick", 4, "region")
     pts = _points(5)
-    want, aux_j = jax.jit(lambda v, b: JSPSModel(jcfg).apply(v, b))(
-        tree, jpad(*pts, CAPS["points"]))
+    pin = pinned("spsmodel_pin.npz", "brick_defaults",
+                 model_record(tcfg, sd, (*pts, CAPS["points"])))
+    want, aux_j = pin["scores"], {"overflow": pin["overflow"]}
     model = tsps.SPSModel(tcfg)
     model.load_state_dict(sd, strict=True)
     model.eval()

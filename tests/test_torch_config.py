@@ -3,23 +3,21 @@ sps_torch's SPSConfig, MinkUNetConfig and Capacities share with sps_tpu's
 has sps_tpu's default (a dtype compared by name; MinkUNetConfig's sp_axis
 and sp_ghost_frac included), the sp / dp entry points' keyword defaults are
 sps_tpu's, and the default engine (brick, conv_mode region) scores as
-sps_tpu's."""
+sps_tpu's (sps_tpu's scores pinned by scripts/export_torch_assets.py --only
+spsmodel in sps_torch/assets/spsmodel_pin.npz)."""
 
 import dataclasses
 import inspect
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_stream import _flax_tree
+from test_torch_stream import model_record, pinned
 
 from sps_tpu.models.minkunet import MinkUNetConfig as JUNetConfig
 from sps_tpu.models.spsnet import SPSConfig as JSPSConfig
-from sps_tpu.models.spsnet import SPSModel as JSPSModel
 from sps_tpu.structs import Capacities as JCaps
-from sps_tpu.structs import pad_point_batch as jpad
 from sps_torch.models import spsnet as tsps
 from sps_torch.models.minkunet import MinkUNetConfig as TUNetConfig
 from sps_torch.structs import Capacities as TCaps
@@ -52,29 +50,37 @@ def test_defaults_equal_sps_tpu(port, ref):
     assert mine == _shared(mine, _norm(ref()))
 
 
+def default_config(sps_config, caps, unet_config):
+    """Either package's default SPSConfig with the capacities and widths cut."""
+    c = dict(points=128, voxels=(256, 128, 64, 64, 64), bricks=(128, 64, 64, 64, 64))
+    narrow = dict(init_dim=4, planes=(4, 8, 8, 8, 8, 8, 8, 4))
+    return dataclasses.replace(sps_config(), caps=caps(**c),
+                               unet=dataclasses.replace(unet_config(), **narrow))
+
+
+def default_inputs():
+    """pad_point_batch's arguments for the default engine's test."""
+    rng = np.random.default_rng(0)
+    return (rng.uniform(-3, 3, (64, 3)).astype(np.float32), np.zeros(64, np.int32),
+            rng.integers(0, 2, 64).astype(np.int32), np.zeros(64, np.float32), 128)
+
+
 def test_default_engine_scores_as_sps_tpu():
     """The default engine ("brick", brick side 4, conv_mode "region", no row
     levels) builds its hash pyramid and scores as sps_tpu's default config
     does on the same weights; only the capacities and the widths are cut
     (f32, rtol 1e-3 / atol 1e-4)."""
-    caps = dict(points=128, voxels=(256, 128, 64, 64, 64), bricks=(128, 64, 64, 64, 64))
-    narrow = dict(init_dim=4, planes=(4, 8, 8, 8, 8, 8, 8, 4))
-    cfg = dataclasses.replace(tsps.SPSConfig(), caps=TCaps(**caps),
-                              unet=dataclasses.replace(TUNetConfig(), **narrow))
-    jcfg = dataclasses.replace(JSPSConfig(), caps=JCaps(**caps),
-                               unet=dataclasses.replace(JUNetConfig(), **narrow))
+    cfg = default_config(tsps.SPSConfig, TCaps, TUNetConfig)
     assert (cfg.engine, cfg.brick_side, cfg.unet.conv_mode) == ("brick", 4, "region")
-    rng = np.random.default_rng(0)
-    args = (rng.uniform(-3, 3, (64, 3)).astype(np.float32), np.zeros(64, np.int32),
-            rng.integers(0, 2, 64).astype(np.int32), np.zeros(64, np.float32), 128)
+    args = default_inputs()
     sd = tsps.init_state_dict(cfg, seed=0)
     model = tsps.SPSModel(cfg)
     model.load_state_dict(sd, strict=True)
     model.eval()
     with torch.inference_mode():
         got, aux = model(tpad(*args, device="cpu"))
-    want, aux_j = jax.jit(lambda v, b: JSPSModel(jcfg).apply(v, b))(
-        jax.tree.map(np.asarray, _flax_tree(sd)), jpad(*args))
+    pin = pinned("spsmodel_pin.npz", "default_engine", model_record(cfg, sd, args))
+    want, aux_j = pin["scores"], {"overflow": pin["overflow"]}
     assert not bool(aux["overflow"].any()) and not bool(np.asarray(aux_j["overflow"]).any())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-4)
     assert bool((got[:64] > 0).all())

@@ -4,9 +4,11 @@
 SPSModel at tests/test_torch_model.py's tiny capacities and narrow widths
 in halo mode with two input channels; the feature's scatter-min and MAP-slot
 zero on the port alone against numpy; StreamingFilter (rebuild, reuse,
-rebuild) with the feature on against sps_tpu's on a small world. Scores at
-rtol 1e-3 / atol 1e-4 (the same network, sums in another order); the
-per-point distances within 1e-6 m (tests/test_torch_register.py)."""
+rebuild) with the feature on against sps_tpu's on a small world, pinned by
+scripts/export_torch_assets.py --only dist_stream (sps_torch/assets/
+dist_stream_pin.npz). Scores at rtol 1e-3 / atol 1e-4 (the same network,
+sums in another order); the per-point distances within 1e-6 m
+(tests/test_torch_register.py)."""
 
 import dataclasses
 
@@ -16,13 +18,11 @@ import numpy as np
 import pytest
 import torch
 from test_torch_model import CAPS, JCFG, TCFG, _points
-from test_torch_stream import INT_STATS, _flax_tree, _load, _pad
+from test_torch_stream import (INT_STATS, NARROW, OVERRIDES, WORLD, _flax_tree, _load,
+                               pinned_runs, world_args)
 
-import sps_tpu.config as jcfg_mod
 import sps_torch.config as tcfg_mod
-from sps_tpu.data import blt, synthetic
 from sps_tpu.models.spsnet import SPSModel as JSPSModel
-from sps_tpu.stream.engine import StreamingFilter as JFilter
 from sps_tpu.structs import pad_point_batch as jpad
 from sps_torch.models import spsnet as tsps
 from sps_torch.stream.engine import StreamingFilter as TFilter
@@ -96,28 +96,30 @@ def test_dist_feats_scatter_min_and_map_slot():
     assert (f[..., tsps.MAP_T, 1] == 0).all() and (f[..., 1, 1] > 0).any()
 
 
+STREAM_META = dict(config="config/config_small.yaml", tpu={**OVERRIDES, "conv_mode": "halo"},
+                   narrow=NARROW, dist_feature=True, world=WORLD, weights_seed=0)
+
+
 def _with_dist(cfg):
     return dataclasses.replace(cfg, dist_feature=True,
                                tpu=dataclasses.replace(cfg.tpu, conv_mode="halo"))
 
 
+def inputs(root):
+    """The configuration, map, filter arguments and weights of the stream runs."""
+    cfg_t = _with_dist(_load(tcfg_mod))
+    mp, argss = world_args(root, STREAM_META["world"], cfg_t.tpu.scan_points)
+    sd = tsps.init_state_dict(cfg_t.sps_config(1), seed=STREAM_META["weights_seed"])
+    return cfg_t, mp, argss, sd
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("dist"))
-    synthetic.generate(root, sequences=("20220629",), scans_per_seq=3, seed=3,
-                       extent=10.0, n_rays=400, ground_points=6000, n_stable=10)
-    scans, poses = blt.load_sequences_raw(root, ["20220629"])
-    mp = blt.load_map(root, "base_map.asc.npy")
-    cfg_t, cfg_j = _with_dist(_load(tcfg_mod)), _with_dist(_load(jcfg_mod))
-    sd = tsps.init_state_dict(cfg_t.sps_config(1), seed=0)
+    cfg_t, mp, argss, sd = inputs(str(tmp_path_factory.mktemp("dist")))
     f_t = TFilter(cfg_t, sd, mp, device="cpu")
-    f_j = JFilter(cfg_j, jax.tree.map(np.asarray, _flax_tree(sd)), mp)
     assert f_t.map_vm is not None and f_t.map_vm.voxel_size == 4 * cfg_t.voxel_size
-    out = []
-    for scan, pose in zip(scans, poses):
-        args = _pad(scan, cfg_t.tpu.scan_points) + (pose.astype(np.float32),)
-        out.append((f_t(*args), f_j(*args), args[1]))
-    return cfg_t.threshold, out
+    want = pinned_runs("dist_stream_pin.npz", "dist", STREAM_META, mp, argss, sd)
+    return cfg_t.threshold, [(f_t(*args), w, args[1]) for args, w in zip(argss, want)]
 
 
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["rebuild", "reuse", "rebuild2"])

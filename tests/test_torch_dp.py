@@ -138,6 +138,7 @@ def _check_fit_outputs(ckpt_dir, log_dir):
     assert [x["step"] for x in lines if "train_loss" in x] == [1]
 
 
+@pytest.mark.limit(600)  # 154 s on a worker of -n 6 (8 CPUs)
 def test_fit_devices_2_through_the_cli(tmp_path):
     ckpt_dir, log_dir, args = _fit_args(tmp_path)
     best = train_cli.main(args)

@@ -4,26 +4,22 @@ tests/sparse_ref.py, and the port's StreamingFilter on
 config/config_small.yaml as shipped (ENGINE gather) against sps_tpu's,
 narrowed. f32; scores at rtol 1e-3 / atol 1e-4 against sps_tpu (the same
 network, sums in another order), at test_minkunet.py's rtol 2e-3 / atol
-2e-4 against the oracle."""
+2e-4 against the oracle. sps_tpu's side is pinned by
+scripts/export_torch_assets.py --only spsmodel,gather_stream
+(sps_torch/assets/spsmodel_pin.npz, gather_stream_pin.npz)."""
 
 import dataclasses
 import os
 
-import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_stream import _flax_tree
+from test_torch_stream import WORLD, _flax_tree, model_record, pinned, pinned_runs, world_args
 
-import sps_tpu.config as jcfg_mod
 import sps_torch.config as tcfg_mod
-from sps_tpu.data import blt, synthetic
 from sps_tpu.models.minkunet import MinkUNetConfig as JUNetConfig
 from sps_tpu.models.spsnet import SPSConfig as JSPSConfig
-from sps_tpu.models.spsnet import SPSModel as JSPSModel
-from sps_tpu.stream.engine import StreamingFilter as JFilter
 from sps_tpu.structs import Capacities as JCaps
-from sps_tpu.structs import pad_point_batch as jpad
 from sps_torch.models import spsnet as tsps
 from sps_torch.models.minkunet import MinkUNetConfig as TUNetConfig
 from sps_torch.ops import topology as ttopo
@@ -61,8 +57,8 @@ def weights():
 def test_spsmodel_gather_matches_sps_tpu_and_the_oracle(weights):
     sd, tree = weights
     pts = _points(3)
-    want, aux_j = jax.jit(lambda v, b: JSPSModel(JCFG).apply(v, b))(
-        tree, jpad(*pts, CAPS["points"]))
+    pin = pinned("spsmodel_pin.npz", "gather", model_record(TCFG, sd, (*pts, CAPS["points"])))
+    want, aux_j = pin["scores"], {"overflow": pin["overflow"]}
     model = tsps.SPSModel(TCFG)
     model.load_state_dict(sd, strict=True)
     model.eval()
@@ -106,31 +102,30 @@ def _load(mod):
     return _narrow(type(cfg))(**fields)
 
 
+STREAM_META = dict(config="config/config_small.yaml",
+                   narrow=dict(init_dim=4, planes=(4, 8, 8, 8, 8, 8, 8, 4)),
+                   world={**WORLD, "scans_per_seq": 2}, weights_seed=0)
+
+
+def stream_inputs(root):
+    """The configuration, map, filter arguments and weights of the stream test."""
+    cfg_t = _load(tcfg_mod)
+    mp, argss = world_args(root, STREAM_META["world"], cfg_t.tpu.scan_points)
+    return cfg_t, mp, argss, tsps.init_state_dict(cfg_t.sps_config(1),
+                                                   seed=STREAM_META["weights_seed"])
+
+
 def test_streaming_filter_on_config_small_as_shipped(tmp_path):
     """ENGINE gather, no override but the narrowed width: two scans, scores,
     keep away from the threshold and the integer stats equal sps_tpu's;
     the gather engine's stats carry no topology-miss count."""
-    root = str(tmp_path)
-    synthetic.generate(root, sequences=("20220629",), scans_per_seq=2, seed=3, extent=10.0,
-                       n_rays=400, ground_points=6000, n_stable=10)
-    scans, poses = blt.load_sequences_raw(root, ["20220629"])
-    mp = blt.load_map(root, "base_map.asc.npy")
-    cfg_t, cfg_j = _load(tcfg_mod), _load(jcfg_mod)
+    cfg_t, mp, argss, sd = stream_inputs(str(tmp_path))
     assert cfg_t.tpu.engine == "gather" and cfg_t.tpu.topo_every == 0
-    sd = tsps.init_state_dict(cfg_t.sps_config(1), seed=0)
     f_t = TFilter(cfg_t, sd, mp, device="cpu")
-    f_j = JFilter(cfg_j, jax.tree.map(np.asarray, _flax_tree(sd)), mp)
     assert f_t.topo_every == 0
-    ns = cfg_t.tpu.scan_points
-    for scan, pose in zip(scans, poses):
-        n = min(len(scan), ns)
-        sx = np.zeros((ns, 3), np.float32)
-        sl = np.zeros(ns, np.float32)
-        sv = np.zeros(ns, bool)
-        sx[:n], sl[:n], sv[:n] = scan[:n, :3], scan[:n, 3], True
-        args = (sx, sv, sl, pose.astype(np.float32))
+    want = pinned_runs("gather_stream_pin.npz", "gather", STREAM_META, mp, argss, sd)
+    for args, (s_j, k_j, st_j) in zip(argss, want):
         s_t, k_t, st_t = f_t(*args)
-        s_j, k_j, st_j = f_j(*args)
         assert set(st_t) == set(st_j) and "topo_miss_points" not in st_t
         assert not bool(st_t["overflow"])
         s_j = np.asarray(s_j)

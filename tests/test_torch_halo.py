@@ -4,7 +4,9 @@ conv_mode "halo" runs every brick conv, the 5^3 stem included, as a dense
 conv over the assembled halo. Two configurations: int8 and head_fold off,
 and both on (the shipping options), on tests/test_torch_model.py's points
 and narrow widths, with seeded weights and random BN statistics carried
-to sps_tpu's tree.
+to sps_tpu's tree. sps_tpu's scores are pinned by
+scripts/export_torch_assets.py --only halo (sps_torch/assets/halo_pin.npz;
+tests/test_torch_model.py runs sps_tpu's SPSModel live).
 
 Tolerances. With int8 off: rtol 1e-3 / atol 1e-4 (the same network, sums
 taken in another order). With int8 on, the codes are round(x / s_in) of
@@ -21,15 +23,12 @@ points whose reference score lies within INT8_ATOL of it.
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
-from test_torch_model import CAPS, JCFG, TCFG, _points
-from test_torch_stream import _flax_tree
+from test_torch_model import CAPS, TCFG, _points
+from test_torch_stream import model_record, pinned
 
-from sps_tpu.models.spsnet import SPSModel as JSPSModel
-from sps_tpu.structs import pad_point_batch as jpad
 from sps_torch.models import spsnet as tsps
 from sps_torch.structs import pad_point_batch as tpad
 
@@ -47,26 +46,31 @@ def check_int8_scores(got, want, valid, eps):
     assert abs(int(((got <= eps) & valid).sum()) - int(((want <= eps) & valid).sum())) <= near.sum()
 
 
+def halo(cfg, opts):
+    """`cfg` (either package's SPSConfig) in conv_mode halo with OPTIONS[opts]."""
+    return dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, conv_mode="halo",
+                                                             **OPTIONS[opts]))
+
+
+def inputs():
+    """Seeded weights with random BN statistics (the port's init_state_dict)
+    and the points."""
+    return tsps.init_state_dict(TCFG, seed=0), _points(3)
+
+
 @pytest.fixture(scope="module")
 def weights():
-    """Seeded weights with random BN statistics (the port's init_state_dict),
-    as the port's state dict and as sps_tpu's variables."""
-    sd = tsps.init_state_dict(TCFG, seed=0)
-    return sd, jax.tree.map(np.asarray, _flax_tree(sd))
+    return inputs()[0]
 
 
 @pytest.mark.parametrize("opts", sorted(OPTIONS))
 def test_spsmodel_halo_matches_sps_tpu(weights, opts):
-    jcfg = dataclasses.replace(JCFG, unet=dataclasses.replace(JCFG.unet, conv_mode="halo",
-                                                              **OPTIONS[opts]))
-    tcfg = dataclasses.replace(TCFG, unet=dataclasses.replace(TCFG.unet, conv_mode="halo",
-                                                              **OPTIONS[opts]))
+    tcfg = halo(TCFG, opts)
     pts = _points(3)
-    sd, variables = weights
-    want, aux_j = jax.jit(lambda v, b: JSPSModel(jcfg).apply(v, b))(
-        variables, jpad(*pts, CAPS["points"]))
-    want = np.asarray(want)
-    assert not bool(np.asarray(aux_j["overflow"]).any())
+    sd = weights
+    pin = pinned("halo_pin.npz", opts, model_record(tcfg, sd, (*pts, CAPS["points"])))
+    want = pin["scores"]
+    assert not bool(pin["overflow"].any())
 
     model = tsps.SPSModel(tcfg)
     model.load_state_dict(sd, strict=True)

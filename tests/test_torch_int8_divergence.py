@@ -39,14 +39,18 @@ sps_tpu parts the same way from itself, jitted against op by op
 score by 1.4e-4; on the second the port equals op-by-op sps_tpu within
 3e-7 and jitted sps_tpu parts from both at a code whose pre-round value
 lies exactly on a tie. So no f32 bound on int8 scores holds on every scan.
-The per-call tables (with --nojit, of op-by-op sps_tpu too; ~4 min):
+
+The tests read jitted sps_tpu's scores and records from a pin
+(scripts/export_torch_assets.py --only int8_divergence,
+sps_torch/assets/int8_divergence_pin.npz), which records the world, the
+configuration and the weights they came from. The per-call tables run
+sps_tpu live (with --nojit, op-by-op sps_tpu too; ~4 min):
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_int8_divergence.py [--nojit]
 """
 
 import sys
 import threading
-from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -54,8 +58,10 @@ import numpy as np
 import pytest
 import torch
 from test_torch_halo import INT8_ATOL
+from test_torch_shipping import META as SHIP_META
 from test_torch_shipping import _load
-from test_torch_stream import _flax_tree, _pad
+from test_torch_stream import _flax_tree, _pad, pinned
+from test_torch_stream import pin_record as pin_record_of
 
 import sps_tpu.config as jcfg_mod
 import sps_tpu.ops.brick as jbk
@@ -72,6 +78,10 @@ WORLDS = {"roadmap": (3, 14), "world7": (7, 4)}
 INPUT_RTOL, INPUT_ATOL = 1e-5, 1e-6
 # Two pre-round values straddling a tie lie within this relative distance.
 TIE_RTOL = 4e-6
+# What a record of sps_tpu's holds per call of brick_conv_int8.
+RECORD_KEYS = ("feats", "q", "pre", "s_in", "w8", "s_w")
+META = dict(SHIP_META, scan=dict(extent=6, n_stable=8, ground_points=4000,
+                                 origin=(0.5, 0.0), n_rays=400))
 
 
 def scan_args(world_seed, scan_seed, ns):
@@ -84,10 +94,9 @@ def scan_args(world_seed, scan_seed, ns):
     return stable, _pad(scan, ns) + (np.eye(4, dtype=np.float32),)
 
 
-# Per thread (one a world, run side by side): sps_tpu's records by call
-# ("j"), the port's ("t"), the tie-aligned port's ("a"), the port's weight
-# codes ("w"), and sps_tpu's records the port aligns to (None: no
-# alignment yet).
+# Per thread: sps_tpu's records by call ("j"), or the port's ("t"), the
+# tie-aligned port's ("a"), the port's weight codes ("w"), and sps_tpu's
+# records the port aligns to (None: no alignment yet).
 RECORDS: dict[int, dict] = {}
 
 
@@ -114,8 +123,7 @@ def recording_sps_tpu_conv(orig):
         wq = jnp.clip(jnp.round(wf / s_w), -127.0, 127.0).astype(jnp.int8)
 
         def record(*a):
-            rec[call] = dict(zip(("feats", "q", "pre", "s_in", "w8", "s_w"),
-                                 (np.array(x) for x in a)))
+            rec[call] = dict(zip(RECORD_KEYS, (np.array(x) for x in a)))
 
         jax.debug.callback(record, feats, q, pre, s_in, wq, s_w)
         return orig(feats, nbr27, w_dense, occ, mask_out=mask_out, center=center)
@@ -173,45 +181,52 @@ def _setup(name):
     return (cfg_t, cfg_j, sd, *scan_args(*WORLDS[name], cfg_t.tpu.scan_points))
 
 
-def run_world(name, nojit=False):
-    """Both filters on the world's scan, with the recording patches in
-    place: sps_tpu (jitted, or op by op), the port beside sps_tpu's compile
-    in a thread of its own, then the port with its tie codes aligned to
-    sps_tpu's."""
-    cfg_t, cfg_j, sd, stable, args = _setup(name)
-    r = RECORDS[threading.get_ident()] = dict(j=[], t=[], a=[], w=[], align=None)
+def pin_record(name):
+    """What int8_divergence_pin.npz records of a world's inputs."""
+    _, _, sd, stable, args = _setup(name)
+    return pin_record_of({**META, "world": WORLDS[name]}, stable, [args], sd)
 
-    def port():
-        RECORDS[threading.get_ident()] = r
-        return TFilter(cfg_t, sd, stable, device="cpu")(*args)[0].numpy()
 
-    with ThreadPoolExecutor(1) as ex:
-        s_t = ex.submit(port)
+def sps_tpu_world(name, nojit=False):
+    """sps_tpu's filter (jitted, or op by op) on the world's scan, its
+    int8 conv patched to record: the scores and the records by call."""
+    _, cfg_j, sd, stable, args = _setup(name)
+    RECORDS[threading.get_ident()] = dict(j=[])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbk, "brick_conv_int8", recording_sps_tpu_conv(jbk.brick_conv_int8))
         f_j = JFilter(cfg_j, jax.tree.map(np.asarray, _flax_tree(sd)), stable)
         with jax.disable_jit(nojit):
             s_j = np.asarray(f_j(*args)[0])
-        s_t = s_t.result()
-    r["align"] = r["j"]
-    s_a = TFilter(cfg_t, sd, stable, device="cpu")(*args)[0].numpy()
-    return dict(s_j=s_j, s_t=s_t, s_a=s_a, rec_j=r["j"], rec_t=r["t"], rec_a=r["a"],
-                rec_w=r["w"][:len(r["t"])], valid=args[1])
+    return s_j, RECORDS.pop(threading.get_ident())["j"]
 
 
-def run_worlds(nojit=False):
-    """run_world for every world, side by side in threads, with sps_tpu's
-    int8 conv and the port's quantization patched to record."""
+def pinned_world(name):
+    """sps_tpu_world(name) as scripts/export_torch_assets.py --only
+    int8_divergence pinned it (sps_torch/assets/int8_divergence_pin.npz)."""
+    pin = pinned("int8_divergence_pin.npz", name, pin_record(name))
+    return pin["s_j"], [{k: pin[f"{i}/{k}"] for k in RECORD_KEYS} for i in range(pin["calls"])]
+
+
+def run_world(name, sps_tpu):
+    """The port's filter on the world's scan, then with its tie codes
+    aligned to sps_tpu's, its quantization patched to record, beside
+    sps_tpu's results `sps_tpu` (sps_tpu_world's)."""
+    cfg_t, _, sd, stable, args = _setup(name)
+    s_j, rec_j = sps_tpu
+    r = RECORDS[threading.get_ident()] = dict(t=[], a=[], w=[], align=None)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jbk, "brick_conv_int8", recording_sps_tpu_conv(jbk.brick_conv_int8))
         mp.setattr(tbk, "quantize_act", recording_port_quantize(tbk.quantize_act))
         mp.setattr(tbk, "quantize_weight", recording_port_weights(tbk.quantize_weight))
-        with ThreadPoolExecutor(len(WORLDS)) as ex:
-            runs = {name: ex.submit(run_world, name, nojit) for name in sorted(WORLDS)}
-            return {name: f.result() for name, f in runs.items()}
+        s_t = TFilter(cfg_t, sd, stable, device="cpu")(*args)[0].numpy()
+        r["align"] = rec_j
+        s_a = TFilter(cfg_t, sd, stable, device="cpu")(*args)[0].numpy()
+    return dict(s_j=s_j, s_t=s_t, s_a=s_a, rec_j=rec_j, rec_t=r["t"], rec_a=r["a"],
+                rec_w=r["w"][:len(r["t"])], valid=args[1])
 
 
 @pytest.fixture(scope="module")
 def worlds():
-    return run_worlds()
+    return {name: run_world(name, pinned_world(name)) for name in sorted(WORLDS)}
 
 
 @pytest.fixture(params=sorted(WORLDS))
@@ -288,8 +303,9 @@ def main(argv=None):
     """Print, per world, the port against jitted sps_tpu call by call; with
     --nojit also the port against sps_tpu run op by op
     (jax.disable_jit()) and jitted sps_tpu against op-by-op sps_tpu."""
-    jit = run_worlds()
-    nojit = run_worlds(nojit=True) if "--nojit" in (argv or []) else {}
+    jit = {name: run_world(name, sps_tpu_world(name)) for name in sorted(WORLDS)}
+    nojit = ({name: run_world(name, sps_tpu_world(name, nojit=True)) for name in sorted(WORLDS)}
+             if "--nojit" in (argv or []) else {})
     for name in sorted(WORLDS):
         print_table(f"{name}: port vs sps_tpu jitted", jit[name])
         if name in nojit:

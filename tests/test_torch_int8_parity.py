@@ -90,6 +90,7 @@ def _uiou(s, lab, eps):
     return (pred & true).sum() / max((pred & true).sum() + (pred ^ true).sum(), 1)
 
 
+@pytest.mark.limit(600)  # 155 s on a worker of -n 6 (8 CPUs)
 @pytest.mark.parametrize("run", ["float", "int8_head_fold"])
 def test_gate_first_scan_matches_the_pin(gate, run):
     cfg, scans, poses, mp, pin = gate

@@ -14,8 +14,16 @@ against the JAX scripts it ports, on the CPU, no JAX program:
     world written as the val and test sequences) with config_loc_small.yaml
     cut to 256 bricks a level in f32: calibrate_threshold's scan spread and
     JSON, loc_experiment's results.jsonl and summary.md ({raw, oracle,
-    sps@0.5}). tests/test_torch_loc_pipeline.py runs loc_calibrate_ate and
-    loc_pipeline on the same dataset. ~10 s."""
+    sps@0.5});
+  * loc_calibrate_ate and loc_pipeline on the same dataset (~35 s):
+    loc_calibrate_ate on a two-point grid writes calibration.json (the
+    sweep, the ATE-optimal epsilon, its robustness window, the protocol)
+    and the sidecar's threshold, and runs the table at that epsilon, a
+    filter whose weights are missing failing alone (logged and skipped: the
+    workflow's isolation, as in scripts/loc_calibrate_ate.py); loc_pipeline
+    with --skip-train and --skip-baselines runs stages B-E: the max-F1
+    epsilon of the val sequence into calibration.json and the sidecar, its
+    StreamingFilter reused by the table at that epsilon."""
 
 import importlib.util
 import json
@@ -33,6 +41,7 @@ from sps_torch.models import spsnet
 from sps_torch.scripts import calibrate_threshold as cal
 from sps_torch.scripts import loc_calibrate_ate as ate
 from sps_torch.scripts import loc_experiment as lexp
+from sps_torch.scripts import loc_pipeline as lpipe
 from sps_torch.utils import checkpoint, metrics
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -246,3 +255,49 @@ def test_loc_experiment_cli(world):
     with open(os.path.join(out, "summary.md")) as f:
         assert f.read().splitlines() == lines
     assert len(lines) == 4 + 3 and "| odom | y | 20220629 | sps@0.5 |" in lines[-1]
+
+
+@pytest.mark.limit(600)  # 166 s on a worker of -n 6 (8 CPUs)
+def test_loc_calibrate_ate_and_pipeline(world, tmp_path):
+    """loc_calibrate_ate on a two-point grid, then loc_pipeline with
+    --skip-train and --skip-baselines: calibration.json, the sidecar's
+    threshold, the table; a filter whose weights are missing fails alone."""
+    ckdir = tmp_path / "ck"
+    ckdir.mkdir()
+    w = str(ckdir / "best.pt")
+    for suffix in ("", ".config.json"):
+        with open(world["weights"] + suffix, "rb") as src, open(w + suffix, "wb") as dst:
+            dst.write(src.read())
+    out = str(tmp_path / "ate")
+    res = ate.main(["-c", world["cfg_path"], "--data", world["data"], "-w", w,
+                    "--baselines", str(tmp_path / "none"), "--grid", "0.5,0.9",
+                    "--runs", "1", "--filters", "sps,raw,mos4d", "--out", out,
+                    "--device", "cpu"])
+    with open(ckdir / "calibration.json") as f:
+        calj = json.load(f)
+    assert calj["epsilon_ate"] in (0.5, 0.9) and len(calj["ate_sweep"]) == 2
+    assert calj["epsilon_robustness"] == ate.epsilon_robustness(calj["ate_sweep"],
+                                                                calj["epsilon_ate"])
+    assert calj["ate_sweep"][0]["per_seq"].keys() == {"20220608"}  # no <val>_clean here
+    with open(w + ".config.json") as f:
+        assert json.load(f)["threshold"] == calj["epsilon_ate"]
+    # mos4d has no weights under --baselines: logged and skipped, the rest ran.
+    assert sorted({(r["seq"], r["filter"]) for r in res["results"]}) == [
+        ("20220629", "raw"), ("20220629", "sps"), ("20220629_clean", "raw"),
+        ("20220629_clean", "sps")]
+    sps = [r for r in res["results"] if r["filter"] == "sps"]
+    assert all(r["epsilon"] == calj["epsilon_ate"] for r in sps)
+
+    pout = str(tmp_path / "pipe")
+    got = lpipe.main(["-c", world["cfg_path"], "--data", world["data"], "--ckpt-out",
+                      str(ckdir), "--skip-train", "--skip-baselines", "--runs", "1",
+                      "--filters", "sps,raw", "--out", pout, "--device", "cpu"])
+    with open(ckdir / "calibration.json") as f:
+        c = json.load(f)
+    assert c["epsilon"] == got["epsilon"] and c["sequence"] == "20220608"
+    with open(w + ".config.json") as f:
+        assert json.load(f)["threshold"] == got["epsilon"]
+    with open(os.path.join(pout, "summary.md")) as f:
+        table = f.read().splitlines()
+    assert table[0] == "| sequence | filter | ATE-RMSE (m) | kept |" and len(table) == 2 + 4
+    assert all(r["epsilon"] == got["epsilon"] for r in got["results"] if r["filter"] == "sps")

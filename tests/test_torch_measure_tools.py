@@ -4,7 +4,9 @@
     scripts/measure_occupancy.py's `occupancy` program, and
     measure_topo_reuse.py's per-scan topology misses against sps_tpu's
     StreamingFilter on the JAX script's loop (scripts/export_torch_assets.py
-    holds both sps_tpu programs: jax_occupancy, jax_topo_reuse), on
+    holds both sps_tpu programs: jax_occupancy, jax_topo_reuse, and pins
+    their results here with --only measure_tools:
+    sps_torch/assets/measure_tools_pin.npz), on
     test_torch_shipping.py's world and capacities (config_small.yaml with
     config.yaml's TPU options, MinkUNet14 narrowed; INT8 and bf16 off, which
     change neither the pyramid nor which points it misses). The trajectory
@@ -32,9 +34,8 @@ import numpy as np
 import pytest
 from test_torch_profile_stream import shipping_world
 from test_torch_shipping import _load
-from test_torch_stream import _flax_tree
+from test_torch_stream import digest, pinned
 
-import sps_tpu.config as jcfg_mod
 import sps_torch.config as tcfg_mod
 from sps_torch.data.bench_world import fingerprint
 from sps_torch.models import spsnet as tsps
@@ -42,11 +43,11 @@ from sps_torch.scripts import make_synthetic_data, measure_occupancy
 from sps_torch.scripts import measure_topo_reuse as mtr
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(_ROOT, "scripts"))
-import export_torch_assets as exp  # noqa: E402
 
 TRAJ = dict(radius=3.0, n_clutter=3, clutter_extent=5.0, n_rays=400, max_r=25.0, seed=1)
 STEPS, K, SCANS = (0.2, 1.0, 6.5), 2, 3
+META = dict(world="test_torch_profile_stream.shipping_world", world_scans=3, int8=False,
+            traj=TRAJ, steps=STEPS, k=K, scans=SCANS, weights_seed=0)
 
 
 def _cfg(mod):
@@ -56,14 +57,29 @@ def _cfg(mod):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    return shipping_world(str(tmp_path_factory.mktemp("world")), scans=3)
+    return shipping_world(str(tmp_path_factory.mktemp("world")), scans=META["world_scans"])
 
 
-def test_occupancy_matches_sps_tpu(world):
+def pin_record(stable, xs, vs, sd):
+    """What measure_tools_pin.npz records of its inputs: META and fingerprints
+    of the map, the scans' valid points and the weights."""
+    return {**META, "map": fingerprint(stable), "weights": digest(sd),
+            "scans": [fingerprint(x[v]) for x, v in zip(xs, vs)]}
+
+
+@pytest.fixture(scope="module")
+def pin(world):
+    """sps_tpu's occupancy and topology misses on this world, pinned by
+    scripts/export_torch_assets.py (export_measure_tools_pin)."""
+    sd = tsps.init_state_dict(_cfg(tcfg_mod).sps_config(1), seed=META["weights_seed"])
+    return pinned("measure_tools_pin.npz", "measure_tools", pin_record(*world, sd))
+
+
+def test_occupancy_matches_sps_tpu(world, pin):
     stable, xs, vs = world
     cfg = _cfg(tcfg_mod)
     got = measure_occupancy.occupancy(cfg, stable, xs, vs, device="cpu", log=lambda m: None)
-    want = exp.jax_occupancy(_cfg(jcfg_mod), stable, xs, vs)
+    want = pin["occupancy"]
     # A point that the quantizations put in different voxels moves a level's
     # count by at most one; none of this world's does.
     assert sum(int(mtr.moved(x[v], cfg.voxel_size).sum()) for x, v in zip(xs, vs)) == 0
@@ -74,12 +90,13 @@ def test_occupancy_matches_sps_tpu(world):
     np.testing.assert_array_equal(got["max"], want[..., 0].max(0))
 
 
-def test_topo_reuse_misses_match_sps_tpu(world):
+def test_topo_reuse_misses_match_sps_tpu(world, pin):
     stable = world[0]
     cfg = _cfg(tcfg_mod)
-    sd = tsps.init_state_dict(cfg.sps_config(1), seed=0)
+    sd = tsps.init_state_dict(cfg.sps_config(1), seed=META["weights_seed"])
     got = mtr.topo_reuse(cfg, sd, stable, STEPS, K, SCANS, device="cpu", **TRAJ)
-    want = exp.jax_topo_reuse(_cfg(jcfg_mod), _flax_tree(sd), stable, STEPS, K, SCANS, **TRAJ)
+    want = {step: list(zip(*(pin[f"topo/{step}/{k}"].tolist()
+                             for k in ("miss", "valid", "xyz_sha")))) for step in STEPS}
     for step in STEPS:
         rows = got["rows"][step]
         pts = got["scans_xyz"][step]

@@ -10,22 +10,23 @@ bit for bit (atlas and brick engines); stages 1 and 2 equal sps_tpu's
 exactly (grid, point-to-slot map, per-level counts, nbr27): no point of
 this scan lies where dividing by the voxel size and multiplying by its
 reciprocal (XLA under jit) disagree, which the test counts; stage 3's
-scores hold the int8 tolerance of tests/test_torch_halo.py.
+scores hold the int8 tolerance of tests/test_torch_halo.py. sps_tpu's
+stages are pinned by scripts/export_torch_assets.py --only profile_stream
+(sps_torch/assets/profile_stream_pin.npz).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_torch_halo import check_int8_scores
 from test_torch_shipping import _load
-from test_torch_stream import _flax_tree
+from test_torch_stream import digest, pinned
 
-import sps_tpu.config as jcfg_mod
 import sps_torch.config as tcfg_mod
+from sps_torch.data.bench_world import fingerprint
 from sps_torch.models import spsnet as tsps
 from sps_torch.scripts import profile_stream as ps
 from sps_torch.stream.engine import StreamingFilter
@@ -52,91 +53,42 @@ def shipping_world(tmp, scans=1):
     return blt.load_map(tmp, "base_map.asc.npy"), xs, vs
 
 
-def _jax_stages(cfg, n):
-    """scripts/profile_stream.py's stage functions (the atlas engine)."""
-    from sps_tpu.models import spsnet
-    from sps_tpu.models.minkunet import MinkUNet
-    from sps_tpu.ops import atlas as atl
-    from sps_tpu.ops import brick as bk
-    from sps_tpu.ops import voxelize as vox
+def inputs(root):
+    """The configuration, map, scan, valid mask and weights of the stages."""
+    cfg_t = _load(tcfg_mod)
+    stable, xs, vs = shipping_world(root)
+    return cfg_t, stable, xs[0], vs[0], tsps.init_state_dict(cfg_t.sps_config(1), seed=0)
 
-    sps_cfg = cfg.sps_config(batch_size=1)
-    bcap = sps_cfg.caps.bricks[0]
-    vsize = cfg.voxel_size
 
-    @jax.jit
-    def stage_vox(map_grid, scan_xyz, valid):
-        coords = vox.quantize(scan_xyz, vsize)
-        zeros = jnp.zeros((n,), jnp.int32)
-        ones = jnp.ones((n,), jnp.int32)
-        grid, p2s = atl.voxelize_bricks(
-            coords, zeros, ones, valid,
-            num_time=2, brick_capacity=bcap,
-            brick_side=sps_cfg.brick_side, extent=sps_cfg.atlas_extent,
-        )
-        bvalid = jnp.arange(bcap) < grid.num_bricks
-        batch0 = jnp.where(bvalid, 0, -1)
-        mrow = atl.atlas_rows(map_grid, batch0, grid.coords[:, 1:])
-        mocc = bk.take_rows(map_grid.occ, mrow)[..., 0]
-        overlap = grid.occ[..., 1] * mocc
-        occ = grid.occ.at[..., 0].set(overlap)
-        return grid._replace(occ=occ), p2s
-
-    @jax.jit
-    def stage_topo(grid):
-        return spsnet.build_levels_from_grid(grid, sps_cfg)[0]
-
-    @jax.jit
-    def stage_unet(variables, levels, p2s, valid):
-        ucfg = sps_cfg.unet
-        occ0 = levels[0].grid.occ
-        feats0 = (0.5 * jnp.repeat(occ0, ucfg.in_channels, axis=-1)).astype(ucfg.dtype)
-        unet = MinkUNet(ucfg, name="MinkUNet")
-        out = unet.apply(
-            {
-                "params": variables["params"]["MinkUNet"],
-                "batch_stats": variables["batch_stats"]["MinkUNet"],
-            },
-            feats0,
-            levels,
-            False,
-        )
-        per_point = vox.devoxelize_flat(
-            out, p2s, jnp.ones((n,), jnp.int32), num_time=2,
-            channels=ucfg.out_channels,
-        )[:, 0].astype(jnp.float32)
-        return jax.nn.sigmoid(per_point) * valid
-
-    return stage_vox, stage_topo, stage_unet
+def pin_record(stable, x, v, sd):
+    """What profile_stream_pin.npz records of its inputs."""
+    return {"world": "shipping_world", "scan": 0, "config": "test_torch_shipping._load",
+            "map": fingerprint(stable), "points": fingerprint(x[v]), "weights": digest(sd)}
 
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    cfg_t, cfg_j = _load(tcfg_mod), _load(jcfg_mod)
-    stable, xs, vs = shipping_world(str(tmp_path_factory.mktemp("world")))
-    x, v = xs[0], vs[0]
-    sd = tsps.init_state_dict(cfg_t.sps_config(1), seed=0)
-    return cfg_t, cfg_j, stable, x, v, sd
+    return inputs(str(tmp_path_factory.mktemp("world")))
 
 
 @pytest.fixture(scope="module")
 def jax_run(setup):
-    """sps_tpu's three stages on the scan: (grid, point2slot, levels, scores)."""
-    from sps_tpu.stream.engine import build_map_atlas
-
-    _, cfg_j, stable, x, v, sd = setup
-    j_vox, j_topo, j_unet = _jax_stages(cfg_j, len(v))
-    grid, p2s = j_vox(build_map_atlas(stable, cfg_j.voxel_size, cfg_j.tpu.brick_side),
-                      jnp.asarray(x), jnp.asarray(v))
-    levels = j_topo(grid)
-    scores = j_unet(jax.tree.map(np.asarray, _flax_tree(sd)), levels, p2s,
-                    jnp.asarray(v, jnp.float32))
-    return grid, p2s, levels, np.asarray(scores)
+    """sps_tpu's three stages on the scan, as pinned: (grid, point2slot,
+    levels, scores)."""
+    _, stable, x, v, sd = setup
+    pin = pinned("profile_stream_pin.npz", "stages", pin_record(stable, x, v, sd))
+    grid = SimpleNamespace(**{k: pin[f"grid/{k}"] for k in ("num_bricks", "coords", "occ")})
+    levels = [SimpleNamespace(
+        grid=SimpleNamespace(**{k: pin[f"levels/{li}/{k}"] for k in ("num_rows", "num_bricks",
+                                                                      "overflow")
+                                if f"levels/{li}/{k}" in pin}),
+        nbr27=pin[f"levels/{li}/nbr27"]) for li in range(int(pin["n_levels"]))]
+    return grid, pin["p2s"], levels, pin["scores"]
 
 
 @pytest.fixture(scope="module")
 def port_run(setup):
-    cfg, _, stable, x, v, sd = setup
+    cfg, stable, x, v, sd = setup
     return _stages(StreamingFilter(cfg, sd, stable, device="cpu"), x, v)
 
 
@@ -158,7 +110,7 @@ def _int8_off(cfg, **tpu):
 def test_stages_compose_to_the_filter(setup, port_run, engine):
     """The atlas engine as configured (INT8); the brick engine (side 8,
     region convs) with INT8 off, whose plain int8 conv is slow on the CPU."""
-    cfg, _, stable, x, v, sd = setup
+    cfg, stable, x, v, sd = setup
     if engine == "atlas":
         scores = port_run[2]
     else:
@@ -173,7 +125,7 @@ def test_stages_compose_to_the_filter(setup, port_run, engine):
 
 
 def test_stages_1_2_equal_sps_tpu(setup, port_run, jax_run):
-    cfg, _, _, x, v, _ = setup
+    cfg, _, x, v, _ = setup
     vsize = np.float32(cfg.voxel_size)
     assert not (np.floor(x[v] / vsize) != np.floor(x[v] * (np.float32(1) / vsize))).any()
     vx, levels, _ = port_run
@@ -193,7 +145,7 @@ def test_stages_1_2_equal_sps_tpu(setup, port_run, jax_run):
 
 
 def test_stage_3_matches_sps_tpu(setup, port_run, jax_run):
-    cfg, _, _, _, v, _ = setup
+    cfg, _, _, v, _ = setup
     assert cfg.sps_config(1).unet.int8
     got = port_run[2].numpy()
     assert (got[v] > 0).all() and (got[~v] == 0).all()
@@ -204,7 +156,7 @@ def test_profile_runs_the_stages(setup, tmp_path):
     """profile() on the CPU (INT8 off): the levels and scores of the stage
     methods, a time for each stage and the fused call, the chrome trace; no
     kernel on the CPU."""
-    cfg, _, stable, x, v, sd = setup
+    cfg, stable, x, v, sd = setup
     cfg = _int8_off(cfg)
     res = ps.profile(cfg, sd, stable, x, v, n=1, fused=True, trace_dir=str(tmp_path),
                      kernel_table=3, device="cpu", log=lambda m: None)

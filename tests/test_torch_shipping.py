@@ -9,26 +9,28 @@ programs. Cut to run on the CPU: narrow widths (init_dim 4), a 12 m world
 (extent 6) and brick capacities (1024, 512, 256, 256, 256), which hold
 its ~700 / 170 / 40 bricks at L0 / L1 / L2. The scores hold the int8
 tolerance of tests/test_torch_halo.py; integer stats other than n_kept and
-the topology misses are equal.
+the topology misses are equal. sps_tpu's side is pinned by
+scripts/export_torch_assets.py --only shipping (sps_torch/assets/
+shipping_pin.npz; tests/test_torch_stream.py runs sps_tpu's filter live).
 """
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 from test_torch_halo import check_int8_scores
-from test_torch_stream import INT_STATS, _flax_tree, _narrow, _pad
+from test_torch_stream import INT_STATS, NARROW, _narrow, pinned_runs, world_args
 
-import sps_tpu.config as jcfg_mod
 import sps_torch.config as tcfg_mod
-from sps_tpu.data import blt, synthetic
-from sps_tpu.stream.engine import StreamingFilter as JFilter
 from sps_torch.models import spsnet as tsps
 from sps_torch.stream.engine import StreamingFilter as TFilter
 
 SHIPPING = dict(engine="atlas", conv_mode="halo", int8=True, head_fold=True, bf16=False,
                 topo_every=2, bricks=(2048, 1024, 512, 512, 512))
+WORLD = dict(sequences=("20220629",), scans_per_seq=3, seed=3, extent=6.0, n_rays=400,
+             ground_points=4000, n_stable=8)
+META = dict(config="config/config_small.yaml", tpu=SHIPPING, narrow=NARROW, world=WORLD,
+            weights_seed=0)
 
 
 def _load(mod):
@@ -39,24 +41,21 @@ def _load(mod):
     return _narrow(type(cfg))(**fields)
 
 
+def inputs(root):
+    """The configuration, map, filter arguments and weights of the runs."""
+    cfg_t = _load(tcfg_mod)
+    mp, argss = world_args(root, WORLD, cfg_t.tpu.scan_points)
+    return cfg_t, mp, argss, tsps.init_state_dict(cfg_t.sps_config(1), seed=META["weights_seed"])
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("stream"))
-    synthetic.generate(root, sequences=("20220629",), scans_per_seq=3, seed=3,
-                       extent=6.0, n_rays=400, ground_points=4000, n_stable=8)
-    scans, poses = blt.load_sequences_raw(root, ["20220629"])
-    mp = blt.load_map(root, "base_map.asc.npy")
-    cfg_t, cfg_j = _load(tcfg_mod), _load(jcfg_mod)
+    cfg_t, mp, argss, sd = inputs(str(tmp_path_factory.mktemp("stream")))
     unet = cfg_t.sps_config(1).unet
     assert unet.conv_mode == "halo" and unet.int8 and unet.head_fold
-    sd = tsps.init_state_dict(cfg_t.sps_config(1), seed=0)
     f_t = TFilter(cfg_t, sd, mp, device="cpu")
-    f_j = JFilter(cfg_j, jax.tree.map(np.asarray, _flax_tree(sd)), mp)
-    out = []
-    for scan, pose in zip(scans, poses):
-        args = _pad(scan, cfg_t.tpu.scan_points) + (pose.astype(np.float32),)
-        out.append((f_t(*args), f_j(*args), args[1]))
-    return cfg_t.threshold, out
+    want = pinned_runs("shipping_pin.npz", "shipping", META, mp, argss, sd)
+    return cfg_t.threshold, [(f_t(*args), w, args[1]) for args, w in zip(argss, want)]
 
 
 @pytest.mark.parametrize("i", [0, 1, 2], ids=["rebuild", "reuse", "rebuild2"])

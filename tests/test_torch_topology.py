@@ -2,16 +2,19 @@
 voxelize (coords, occupancy, num_voxels, overflow, point2voxel, the pooled
 features, the compact table) and build_levels over five levels (nbr[5],
 nbr[3], child, parent, parity, each level's grid) bit-equal, with and
-without capacity overflow."""
+without capacity overflow.
 
-import jax
-import jax.numpy as jnp
+sps_tpu's results on these points are pinned by
+scripts/export_torch_assets.py --only topology
+(sps_torch/assets/topology_pin.npz), which records the points and
+capacities they came from."""
+
 import numpy as np
 import pytest
 import torch
+from test_torch_stream import pinned
 
-from sps_tpu.ops import topology as jtopo
-from sps_tpu.ops import voxelize as jvox
+from sps_torch.data.bench_world import fingerprint
 from sps_torch.ops import topology as ttopo
 from sps_torch.ops import voxelize as tvox
 
@@ -33,59 +36,78 @@ def _points(seed, n=600, span=24):
     return coords, batch, t, valid, feats
 
 
+VOXEL_CAPS = {"fits": 512, "overflows": 128}
+LEVEL_CAPS = {"fits": (512, 512, 256, 128, 64), "overflows": (512, 128, 32, 16, 8)}
+GRID = ("coords", "occ", "num_voxels", "overflow", "table.keys", "table.rows")
+LEVEL = ("child", "parent", "parity")
+
+
+def pin_record(case, seed, caps):
+    """What topology_pin.npz records of a case's inputs."""
+    return {"case": case, "seed": seed, "caps": caps, "T": T, "kernel_sizes": KS,
+            "points": [fingerprint(a) for a in _points(seed)]}
+
+
+def sps_tpu_voxelize(case):
+    """sps_tpu's voxelize of _points(0) at VOXEL_CAPS[case], as pinned."""
+    return pinned("topology_pin.npz", f"voxelize/{case}",
+                  pin_record(case, 0, VOXEL_CAPS[case]))
+
+
+def sps_tpu_levels(case):
+    """sps_tpu's build_levels of _points(1) at LEVEL_CAPS[case], as pinned."""
+    return pinned("topology_pin.npz", f"levels/{case}", pin_record(case, 1, LEVEL_CAPS[case]))
+
+
 def _eq(got, want, what):
     np.testing.assert_array_equal(got.numpy() if isinstance(got, torch.Tensor) else got,
                                   np.asarray(want), err_msg=what)
 
 
-def _check_grid(tg, jg, what):
-    for name in ("coords", "occ", "num_voxels", "overflow"):
-        _eq(getattr(tg, name), getattr(jg, name), f"{what}.{name}")
-    _eq(tg.table.keys, jg.table.keys, f"{what}.table.keys")
-    _eq(tg.table.rows, jg.table.rows, f"{what}.table.rows")
+def grid_arrays(grid, prefix):
+    """A grid's GRID fields under `prefix` (a pin's keys)."""
+    return {f"{prefix}{name}": getattr(grid.table, name[6:]) if name.startswith("table.")
+            else getattr(grid, name) for name in GRID}
 
 
-@pytest.mark.parametrize("cap", [512, 128], ids=["fits", "overflows"])
-def test_voxelize_bit_equal(cap):
+def level_arrays(levels):
+    """build_levels' results by key: each level's grid, nbr tables and
+    child, parent and parity where the level has them."""
+    out = {}
+    for li, lv in enumerate(levels):
+        out.update(grid_arrays(lv.grid, f"L{li}/"))
+        out.update({f"L{li}/nbr{ks}": lv.nbr[ks] for ks in lv.nbr})
+        out.update({f"L{li}/{n}": getattr(lv, n) for n in LEVEL if getattr(lv, n) is not None})
+    return out
+
+
+def _check_all(got, want):
+    assert sorted(got) == sorted(want)
+    for key in want:
+        _eq(got[key], want[key], key)
+
+
+@pytest.mark.parametrize("case", VOXEL_CAPS)
+def test_voxelize_bit_equal(case):
+    cap, pin = VOXEL_CAPS[case], sps_tpu_voxelize(case)
     coords, batch, t, valid, feats = _points(0)
-    f = jax.jit(lambda c, b, tt, v, x: jvox.voxelize(c, b, tt, v, num_time=T,
-                                                     voxel_capacity=cap, features=x))
-    jg, jp2v, jpooled = f(*map(jnp.asarray, (coords, batch, t, valid, feats)))
     tg, tp2v, tpooled = tvox.voxelize(*map(torch.as_tensor, (coords, batch, t, valid)),
                                       num_time=T, voxel_capacity=cap,
                                       features=torch.as_tensor(feats))
-    _check_grid(tg, jg, "grid")
-    _eq(tp2v, jp2v, "point2voxel")
-    _eq(tpooled, jpooled, "pooled")
+    _check_all({**grid_arrays(tg, "grid/"), "point2voxel": tp2v, "pooled": tpooled,
+                "devoxelize": tvox.devoxelize(tpooled, tp2v, torch.as_tensor(t))}, pin)
     assert bool(tg.overflow) == (cap == 128)
-    want = jvox.devoxelize(jpooled, jp2v, jnp.asarray(t))
-    _eq(tvox.devoxelize(tpooled, tp2v, torch.as_tensor(t)), want, "devoxelize")
 
 
-@pytest.mark.parametrize("caps", [(512, 512, 256, 128, 64), (512, 128, 32, 16, 8)],
-                         ids=["fits", "overflows"])
-def test_build_levels_bit_equal(caps):
+@pytest.mark.parametrize("case", LEVEL_CAPS)
+def test_build_levels_bit_equal(case):
+    caps, pin = LEVEL_CAPS[case], sps_tpu_levels(case)
     coords, batch, t, valid, _ = _points(1)
-
-    def jrun(c, b, tt, v):
-        g, _, _ = jvox.voxelize(c, b, tt, v, num_time=T, voxel_capacity=caps[0])
-        return jtopo.build_levels(g, num_levels=5, capacities=caps, kernel_sizes=KS)
-
-    jl = jax.jit(jrun)(*map(jnp.asarray, (coords, batch, t, valid)))
     tg, _, _ = tvox.voxelize(*map(torch.as_tensor, (coords, batch, t, valid)), num_time=T,
                              voxel_capacity=caps[0])
     tl = ttopo.build_levels(tg, num_levels=5, capacities=caps, kernel_sizes=KS)
     assert len(tl) == 5
-    for li, (a, b) in enumerate(zip(tl, jl)):
-        _check_grid(a.grid, b.grid, f"L{li}")
-        assert sorted(a.nbr) == sorted(b.nbr)
-        for ks in a.nbr:
-            _eq(a.nbr[ks], b.nbr[ks], f"L{li}.nbr[{ks}]")
-        for name in ("child", "parent", "parity"):
-            x, y = getattr(a, name), getattr(b, name)
-            assert (x is None) == (y is None), f"L{li}.{name}"
-            if x is not None:
-                _eq(x, y, f"L{li}.{name}")
+    _check_all(level_arrays(tl), pin)
     overflow = [bool(lv.grid.overflow) for lv in tl]
     assert any(overflow) == (caps[1] == 128)
     assert int((tl[0].nbr[5] >= 0).sum()) > int((tl[0].nbr[3] >= 0).sum()) > 0

@@ -3,43 +3,47 @@ sps_tpu's on tests/test_torch_stream.py's world and configuration
 (config_small, the atlas engine, MinkUNet14 narrowed, f32, int8 off): one
 rebuild scan each, scores within rtol 1e-3 / atol 1e-4, keep equal away
 from epsilon, integer stats equal (tests/test_torch_zband_levels.py holds
-SPSModel and the routes)."""
+SPSModel and the routes). sps_tpu's side is pinned by
+scripts/export_torch_assets.py --only zband_levels (sps_torch/assets/
+zband_levels_stream_pin.npz; tests/test_torch_stream.py runs sps_tpu's
+filter live)."""
 
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
-from test_torch_stream import _flax_tree, _load, _pad
+from test_torch_stream import NARROW, OVERRIDES, WORLD, _load, pinned_runs, world_args
 
-import sps_tpu.config as jcfg_mod
 import sps_torch.config as tcfg_mod
-from sps_tpu.data import blt, synthetic
-from sps_tpu.stream.engine import StreamingFilter as JFilter
 from sps_torch.models import spsnet as tsps
 from sps_torch.stream.engine import StreamingFilter as TFilter
 
 LEVELS = (2, 3)
+META = dict(config="config/config_small.yaml", tpu=OVERRIDES, narrow=NARROW,
+            world={**WORLD, "scans_per_seq": 1}, weights_seed=0)
+
+
+def with_levels(cfg, levels):
+    """One rebuild scan (TOPO_EVERY 0) at ZBAND_LEVELS `levels`."""
+    over = dict(zband_levels=levels, topo_every=0)
+    return type(cfg)(**{**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)},
+                        "tpu": dataclasses.replace(cfg.tpu, **over)})
+
+
+def inputs(root, levels):
+    """The configuration, map, filter arguments and weights of a run."""
+    cfg_t = with_levels(_load(tcfg_mod), levels)
+    mp, argss = world_args(root, META["world"], cfg_t.tpu.scan_points)
+    return cfg_t, mp, argss, tsps.init_state_dict(cfg_t.sps_config(1), seed=META["weights_seed"])
 
 
 @pytest.mark.parametrize("levels", LEVELS)
 def test_streaming_filter_zband_levels_match_sps_tpu(levels, tmp_path):
     """One rebuild scan (TOPO_EVERY 0); the scores, keep and integer stats."""
-    root = str(tmp_path)
-    synthetic.generate(root, sequences=("20220629",), scans_per_seq=1, seed=3, extent=10.0,
-                       n_rays=400, ground_points=6000, n_stable=10)
-    scans, poses = blt.load_sequences_raw(root, ["20220629"])
-    mp = blt.load_map(root, "base_map.asc.npy")
-    over = dict(zband_levels=levels, topo_every=0)
-    cfg_t, cfg_j = _load(tcfg_mod), _load(jcfg_mod)
-    cfg_t = type(cfg_t)(**{**{f.name: getattr(cfg_t, f.name) for f in dataclasses.fields(cfg_t)},
-                           "tpu": dataclasses.replace(cfg_t.tpu, **over)})
-    cfg_j = type(cfg_j)(**{**{f.name: getattr(cfg_j, f.name) for f in dataclasses.fields(cfg_j)},
-                           "tpu": dataclasses.replace(cfg_j.tpu, **over)})
-    sd = tsps.init_state_dict(cfg_t.sps_config(1), seed=0)
-    args = _pad(scans[0], cfg_t.tpu.scan_points) + (poses[0].astype(np.float32),)
-    s_t, k_t, st_t = TFilter(cfg_t, sd, mp, device="cpu")(*args)
-    s_j, k_j, st_j = JFilter(cfg_j, jax.tree.map(np.asarray, _flax_tree(sd)), mp)(*args)
+    cfg_t, mp, argss, sd = inputs(str(tmp_path), levels)
+    s_t, k_t, st_t = TFilter(cfg_t, sd, mp, device="cpu")(*argss[0])
+    [(s_j, k_j, st_j)] = pinned_runs("zband_levels_stream_pin.npz", f"levels{levels}",
+                                     {**META, "zband_levels": levels}, mp, argss, sd)
     assert not bool(st_t["overflow"]) and not bool(st_j["overflow"])
     s_j = np.asarray(s_j)
     np.testing.assert_allclose(s_t.numpy(), s_j, rtol=1e-3, atol=1e-4)
@@ -47,5 +51,3 @@ def test_streaming_filter_zband_levels_match_sps_tpu(levels, tmp_path):
     np.testing.assert_array_equal(k_t.numpy()[far], np.asarray(k_j)[far])
     for name in ("n_scan_voxels", "n_submap_voxels", "n_kept", "overflow"):
         assert int(st_t[name]) == int(st_j[name]), name
-
-
